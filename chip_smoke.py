@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) of FractalSort on one
-NVIDIA GPU and check it.
+NVIDIA GPU and check it: the in-memory sort, and the llama3.2-1b serving
+path (prefill through the flash-attention kernel, then the decode loop
+with the fractal-sort scheduler).
 
-    python3 chip_smoke.py [--seed 0] [--log2n 27]
+    python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
 
 Phases, each fatal on failure:
 
@@ -23,7 +25,29 @@ Phases, each fatal on failure:
 5. the kernels' launch counts over phase 4 (each must be > 0);
 6. per-kernel times at the main path's shapes beside their bounds, the
    plain versions and one PyTorch library call, and the end-to-end sort
-   time beside ``torch.sort``.
+   time beside ``torch.sort``;
+
+then, with the sort data freed and TF32 off for float32 matmuls:
+
+7. K5 (flash attention) against its plain version (the naive fp32
+   oracle) on the card at the reference's test shapes, at hd 96 and 128,
+   causal and not, and at the prefill shape q, k, v (2, 2048, 32, 64);
+   tolerance fp32 2e-5 (1e-4 at S = 2048: 2048-term sums in another
+   order), bf16 2e-2;
+8. prefill: llama3.2-1b at full width and depth (``--lm-layers`` cuts
+   depth for a rehearsal), fp32 weights from ``--seed``, B = 2 prompts of
+   S = 2048 tokens through ``make_prefill_step`` with the kernel switch on
+   (16 K5 launches) against the plain blockwise attention, logits within
+   atol = rtol = 1e-3;
+9. serve: token-by-token decode against the prefill logits (1e-3), the
+   scheduler's admission order on the card against the CPU's, then
+   ``serve()`` on 8 requests with 4 slots at max_len 96 (every request
+   answered; K1 and K2 launched by the scheduler's sorts);
+10. K5 times at the prefill shape (fp32 and bf16) beside the bound, the
+   plain version and ``scaled_dot_product_attention`` (timed as the
+   yardstick only; the port never calls it), prefill ms and serve tokens/s.
+
+Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -31,6 +55,8 @@ The last line of output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -43,6 +69,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
+# H100 SXM dense peaks, NVIDIA data sheet: fp32 outside the tensor cores
+# (no TF32) and bf16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PREFILL_BATCH, PREFILL_SEQ = 2, 2048  # prompts and tokens a prompt
 
 
 def log(msg: str) -> None:
@@ -66,7 +96,7 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 7) -> float:
     return statistics.median(times)
 
 
-def profile_sort(fn, top: int = 15) -> dict:
+def profile_call(fn, top: int = 15) -> dict:
     """Device time of one warm call of ``fn`` by kernel name (the
     profiler's device-side events: kernels, memsets, copies), beside the
     call's wall time."""
@@ -110,14 +140,243 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def attention_bound_ms(B: int, Sq: int, Skv: int, H: int, hd: int,
+                       causal: bool, dtype: torch.dtype) -> tuple:
+    """The least time of one attention call on the card: the larger of its
+    QK^T and PV flops (4 * B * H * hd a visible (q, k) pair) over the
+    dtype's peak and its bytes (q, k, v read once, out written once) over
+    the memory rate.  Returns (ms, "operations" or "bytes")."""
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+             else Sq * Skv)
+    flops = 4 * B * H * hd * pairs
+    nbytes = (2 * B * Sq + 2 * B * Skv) * H * hd * torch.finfo(dtype).bits // 8
+    op_ms = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
+                tol: float) -> float:
+    """Raise unless |got - want| <= tol + tol * |want| everywhere (and both
+    are finite, of one shape); return max |got - want|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs()
+    bad = err > tol + tol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} values beyond "
+                             f"{tol} (max |err| {float(err.max()):.3e})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
+    """Phases 7-10: K5 against its plain version, llama3.2-1b prefill and
+    serve on the card, and their times.  Adds the prefill and serve
+    launch counts to ``path_counts``; returns (kernel table rows, e2e
+    rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.serve import FractalScheduler, make_requests, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train_lib import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[lm] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
+    B, S = PREFILL_BATCH, PREFILL_SEQ
+    cfg = get_config("llama3.2-1b")
+    if args.lm_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.lm_layers)
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+
+    def qkv(shape, dtype):
+        b, sq, h, d, skv = shape
+        return tuple(torch.from_numpy(rng.standard_normal(sh, np.float32)).to(
+            dev, dtype) for sh in ((b, sq, h, d), (b, skv, h, d),
+                                   (b, skv, h, d)))
+
+    # -- 7. K5 against its plain version ----------------------------------------
+    t0 = time.perf_counter()
+    k5_err = {"float32": 0.0, "bfloat16": 0.0}
+    full = (B, S, H, hd, S)
+    # the reference's test shapes, two head dims of the kernel's 128-wide
+    # instance, and the prefill shape
+    for shape in ((2, 64, 4, 16, 64), (1, 48, 2, 8, 80), (2, 100, 2, 32, 100),
+                  (2, 33, 2, 96, 65), (1, 130, 2, 128, 70), full):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            tol = (2e-2 if dtype == torch.bfloat16
+                   else 1e-4 if shape == full else 2e-5)
+            q, k, v = qkv(shape, dtype)
+            for causal in (True, False):
+                err = check_close(
+                    f"K5 {dname} {shape} causal={causal}",
+                    flash_attention_kernel(q, k, v, causal=causal),
+                    ref.flash_attention_ref(q, k, v, causal=causal), tol)
+                k5_err[dname] = max(k5_err[dname], err)
+            del q, k, v
+    log(f"[kernels] K5 flash attention within tolerance of its plain "
+        f"version at 6 shapes x causal/not x fp32/bf16 "
+        f"({time.perf_counter() - t0:.1f} s); max |err| {json.dumps(k5_err)}")
+
+    # -- 8. prefill ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = T.Transformer(cfg, device=dev).init_params(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)).to(dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(dataclasses.replace(
+        cfg, use_pallas_attention=True))
+    prefill_plain = make_prefill_step(dataclasses.replace(
+        cfg, use_pallas_attention=False))
+    log(f"[prefill] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{H} q / {cfg.n_kv_heads} kv heads x {hd}, vocab {cfg.vocab}, "
+        f"{n_params / 1e9:.3f} B fp32 parameters from seed {args.seed} "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+    ops.reset_launch_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    path_counts["prefill"] = ops.launch_counts()
+    k5 = path_counts["prefill"]["flash_attention_kernel"]
+    if k5 != cfg.n_layers:
+        raise AssertionError(f"prefill launched K5 {k5} times, expected one "
+                             f"per layer ({cfg.n_layers})")
+    logits_plain = prefill_plain(model, batch)
+    # fp32 through 16 layers, attention sums in another order
+    prefill_err = check_close("prefill logits, K5 vs plain attention",
+                              logits, logits_plain, 1e-3)
+    log(f"[prefill] B={B} S={S}: logits {tuple(logits.shape)} finite, within "
+        f"1e-3 of the plain path (max |err| {prefill_err:.3e}); K5 launches "
+        f"{k5}")
+    del logits_plain
+
+    # -- 9. serve ------------------------------------------------------------------
+    steps = 8  # decode reproduces the prefill's first tokens
+    decode = make_decode_step(cfg)
+    cache = T.init_cache(cfg, B, steps, model.dtype, dev)
+    with torch.inference_mode():
+        dec = []
+        for t in range(steps):
+            step_logits, cache = T.decode_step(model, cfg, cache,
+                                               tokens[:, t:t + 1], t)
+            dec.append(step_logits[:, 0])
+    decode_err = check_close("decode vs prefill logits",
+                             torch.stack(dec, 1), logits[:, :steps], 1e-3)
+    nxt, _ = decode(model, T.init_cache(cfg, B, 1, model.dtype, dev),
+                    tokens[:, :1], 0)
+    if not torch.equal(nxt[:, 0].long(), logits[:, 0].argmax(-1)):
+        raise AssertionError("greedy decode step disagrees with the prefill")
+    del logits, dec, cache, step_logits
+    log(f"[serve] {steps} decode steps within 1e-3 of the prefill logits "
+        f"(max |err| {decode_err:.3e})")
+    requests = make_requests(8, cfg.vocab, rng)
+    on_card, on_cpu = FractalScheduler(dev), FractalScheduler("cpu")
+    for r in requests:
+        on_card.add(r)
+        on_cpu.add(r)
+    order = [[r.rid for r in on_card.take(1)] for _ in requests]
+    if order != [[r.rid for r in on_cpu.take(1)] for _ in requests]:
+        raise AssertionError("scheduler order on the card differs from the "
+                             "CPU's")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = serve(model, requests, batch_slots=4, max_len=96)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    path_counts["serve"] = ops.launch_counts()
+    unanswered = [r.rid for r in served if len(r.out) != r.max_new
+                  or not all(0 <= t < cfg.vocab for t in r.out)]
+    if unanswered:
+        raise AssertionError(f"requests not answered in full: {unanswered}")
+    for name in ("fractal_histogram", "fractal_rank_kernel"):
+        if path_counts["serve"][name] <= 0:
+            raise AssertionError(f"the scheduler's sorts launched no {name}")
+    generated = sum(len(r.out) for r in served)
+    fed = sum(len(r.prompt) + len(r.out) - 1 for r in served)
+    log(f"[serve] {len(served)}/{len(requests)} requests answered in "
+        f"{serve_s:.3f} s ({generated} tokens generated); admission order "
+        f"{[o[0] for o in order]} equal on card and CPU; launches "
+        f"{json.dumps(path_counts['serve'])}")
+
+    # -- 10. times -------------------------------------------------------------------
+    table = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        q, k, v = qkv(full, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bound, bound_by = attention_bound_ms(B, S, S, H, hd, True, dtype)
+        row = {
+            "ms": cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True)),
+            "plain_ms": cuda_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal=True), 1, 3),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)),
+            "max_abs_err": k5_err[dname],
+        }
+        log(f"[time] K5 {dname} (q, k, v {full[:4]}, causal): {row['ms']:.3f} "
+            f"ms, bound {bound:.3f} ms ({bound_by}), plain "
+            f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms")
+        if dtype == torch.float32:
+            entry = {"name": "flash_attention_kernel", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:106",
+                     "launches": 0, **row,
+                     "shape": f"q, k, v {full[:4]} fp32, causal"}
+        else:
+            entry.update({f"bf16_{key}": val for key, val in row.items()})
+        del q, k, v, qt, kt, vt
+    table.append(entry)
+
+    if args.profile:
+        log(json.dumps({"profile_prefill": profile_call(
+            lambda: prefill(model, batch)), "card": card}))
+        log(json.dumps({"profile_serve": profile_call(
+            lambda: serve(model, make_requests(8, cfg.vocab, rng), 4, 96)),
+            "card": card}))
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
+    prefill_plain_ms = cuda_ms(lambda: prefill_plain(model, batch), 1, 3)
+    e2e = [{
+        "name": f"prefill {cfg.name} B={B} S={S} fp32, K5 attention",
+        "layers": cfg.n_layers, "ms": prefill_ms,
+        "plain_attention_ms": prefill_plain_ms,
+        "tokens_per_s": B * S / prefill_ms * 1e3,
+    }, {
+        "name": f"serve {cfg.name} fp32: 8 requests, 4 slots, max_len 96",
+        "layers": cfg.n_layers, "wall_s": serve_s,
+        "generated_tokens": generated, "fed_tokens": fed,
+        "generated_tokens_per_s": generated / serve_s,
+        "fed_tokens_per_s": fed / serve_s,
+    }]
+    for row in e2e:
+        log(f"[e2e] {row}")
+    return table, e2e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log2n", type=int, default=27,
                     help="main-path key count 2**log2n (default 27)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one p=32 sort with torch.profiler and "
-                         "print device time by kernel and op")
+                    help="also trace one p=32 sort and one prefill with "
+                         "torch.profiler and print device time by kernel "
+                         "and op")
+    ap.add_argument("--lm-layers", type=int, default=None,
+                    help="cut llama3.2-1b to this many layers (default: "
+                         "all 16)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -132,6 +391,7 @@ def main() -> int:
     from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
                                                   fractal_rank_scatter_kernel)
     from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -155,7 +415,7 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # -- 3. kernel vs plain, bit-exact -----------------------------------------
-    errs = {k: 0 for k in ops.KERNELS}
+    errs = {k: 0 for k in ops.SORT_KERNELS}
 
     def agree(kernel: str, got, want, what: str) -> None:
         torch.cuda.synchronize()
@@ -296,9 +556,10 @@ def main() -> int:
     # -- 5. launch counts over the main path ------------------------------------
     log(f"[launches] main path ({main_s:.1f} s): {json.dumps(counts)}; "
         f"one default-plan p=32 sort: {json.dumps(per_sort)}")
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+    for name in ops.SORT_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the sort path")
+    path_counts = {"sort": counts}
 
     # -- 6. times at the main path's shapes ---------------------------------------
     kbits = keys.view(torch.int32)
@@ -407,8 +668,32 @@ def main() -> int:
     log(f"[e2e] {e2e[-1]}")
 
     if args.profile:
-        log(json.dumps({"profile": profile_sort(
+        log(json.dumps({"profile": profile_call(
             lambda: fractal_sort(keys, 32)), "card": card}))
+
+    # free the sort path's data before the model phases
+    del (data, keys, keys24, via_cuda, via_torch, kbits, c16, c256, s16,
+         s256, mcounts, cdf, c24, rows, kern, plain, lib, d, carried)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"after freeing the sort data")
+    lm_table, lm_e2e = lm_phases(args, rng, dev, card, path_counts)
+    table += lm_table
+    e2e += lm_e2e
+
+    # every kernel launched on a main path (sort, prefill, serve)
+    totals = {k: sum(c.get(k, 0) for c in path_counts.values())
+              for k in ops.KERNELS}
+    log(f"[launches] over the main paths: {json.dumps(totals)}; by path "
+        f"{json.dumps(path_counts)}")
+    for name, c in totals.items():
+        if c <= 0:
+            raise AssertionError(f"{name} was never launched on a main path")
+    for entry in table:
+        entry["launches"] = totals[entry["name"]]
+        entry["launches_by_path"] = {p: c.get(entry["name"], 0)
+                                     for p, c in path_counts.items()}
 
     name = torch.cuda.get_device_name(0)
     log(json.dumps({"e2e": e2e, "card": card}))

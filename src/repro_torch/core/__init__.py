@@ -48,4 +48,5 @@ from repro_torch.core.fractal_sort import (
     keys_dtype,
     rank_engine,
     reconstruct,
+    resolve_device,
 )

@@ -374,16 +374,20 @@ def reconstruct(counts: torch.Tensor, trailing: torch.Tensor, l_n: int, p: int,
 # ---------------------------------------------------------------------------
 
 
-def to_device(keys, device) -> torch.Tensor:
-    """``keys`` as a tensor on ``device``; ``None`` means ``"cuda"`` and
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` means ``"cuda"`` and
     raises when CUDA is unavailable (entry points never fall back to the
     CPU on their own)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                               "sort on the CPU")
-        device = "cuda"
-    return torch.as_tensor(keys).to(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run on the CPU")
+    return device
+
+
+def to_device(keys, device) -> torch.Tensor:
+    """``keys`` as a tensor on ``device`` (see :func:`resolve_device`)."""
+    return torch.as_tensor(keys).to(resolve_device(device))
 
 
 def make_backend(backend: Optional[str], device: torch.device, batch: int = 1024):

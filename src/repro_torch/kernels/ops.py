@@ -1,8 +1,8 @@
 """Public entry points over the CUDA kernels.
 
-Port of ``repro.kernels.ops`` for the sort path.  On CUDA tensors every
-function launches the hand-written kernels; on CPU tensors the wrappers
-compute their plain versions.  :func:`launch_counts` /
+Port of ``repro.kernels.ops`` for the sort path and flash attention.  On
+CUDA tensors every function launches the hand-written kernels; on CPU
+tensors the wrappers compute their plain versions.  :func:`launch_counts` /
 :func:`reset_launch_counts` read and clear the wrappers' launch counters.
 """
 
@@ -15,6 +15,8 @@ import torch
 from repro_torch.core.executor import CudaBackend, PlanExecutor
 from repro_torch.core.fractal_sort import to_device
 from repro_torch.core.sort_plan import make_sort_plan
+from repro_torch.kernels.flash_attention import (
+    flash_attention_kernel as _flash)
 from repro_torch.kernels.fractal_histogram import (
     digit_histograms as _digit_hists, fractal_histogram as _hist)
 from repro_torch.kernels.fractal_rank import (
@@ -24,6 +26,7 @@ from repro_torch.kernels.fractal_reconstruct import (
     fractal_reconstruct as _recon)
 
 __all__ = [
+    "flash_attention",
     "histogram",
     "digit_histograms",
     "rank",
@@ -41,7 +44,11 @@ KERNELS = {
     "fractal_rank_kernel": _rank,
     "fractal_rank_scatter_kernel": _rank_scatter,
     "fractal_reconstruct": _recon,
+    "flash_attention_kernel": _flash,
 }
+#: the kernels of the sort path (K1-K4); K5 runs on the LM's prefill path
+SORT_KERNELS = ("fractal_histogram", "fractal_rank_kernel",
+                "fractal_rank_scatter_kernel", "fractal_reconstruct")
 
 
 def launch_counts() -> dict:
@@ -52,6 +59,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
+                    block_kv: int = 128):
+    return _flash(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
 
 
 def histogram(keys, n_bins: int):

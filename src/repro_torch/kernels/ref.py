@@ -7,13 +7,15 @@ tests and ``chip_smoke.py`` hold the kernels against them on the card.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core.fractal_tree import wrap_int32
 
-__all__ = ["histogram_ref", "rank_ref", "reconstruct_ref"]
+__all__ = ["histogram_ref", "rank_ref", "reconstruct_ref",
+           "flash_attention_ref"]
 
 
 def histogram_ref(keys: torch.Tensor, n_bins: int,
@@ -60,3 +62,20 @@ def reconstruct_ref(counts: torch.Tensor, trailing: torch.Tensor,
     slot_bin = torch.searchsorted(ends, slots, right=True)
     return wrap_int32((slot_bin << t_bits)
                       | (trailing.to(torch.int64) & 0xFFFFFFFF))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention oracle in fp32, cast back to q's dtype.
+    q: (B, Sq, H, hd); k, v: (B, Skv, H, hd); the causal mask hides keys
+    after the query's own index (top-left aligned)."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    if causal:
+        Sq, Skv = q.shape[1], k.shape[1]
+        mask = (torch.arange(Skv, device=q.device)[None, :]
+                > torch.arange(Sq, device=q.device)[:, None])
+        s = s.masked_fill(mask[None, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)

@@ -8,17 +8,22 @@ no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import (fractal_argsort, fractal_sort,
                               fractal_sort_pairs, make_sort_plan)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.fractal_histogram import fractal_histogram
 from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
                                               fractal_rank_scatter_kernel)
 from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
+from repro_torch.models import layers as L
 
 pytestmark = pytest.mark.cuda
 
@@ -68,7 +73,8 @@ def test_sort_entry_points_launch_the_kernels(rng, cuda_device):
     np.testing.assert_array_equal(perm.cpu().numpy(), order)
     np.testing.assert_array_equal(
         ops.fractal_sort_kernel(t, 32).cpu().numpy(), np.sort(keys))
-    assert all(c > 0 for c in ops.launch_counts().values()), ops.launch_counts()
+    counts = ops.launch_counts()
+    assert all(counts[name] > 0 for name in ops.SORT_KERNELS), counts
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -85,3 +91,55 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fractal_rank_scatter_kernel(keys, start, 16, block=2048)
     with pytest.raises(ValueError):  # a CPU operand next to a CUDA one
         fractal_histogram(keys, 16, init=torch.zeros(16, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 2, 32, 100), (1, 70, 3, 64, 129),
+                                   (2, 33, 2, 96, 65), (1, 130, 2, 128, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_oracle(rng, cuda_device, shape, dtype,
+                                               causal):
+    """f32 2e-5 (sums in another order), bf16 2e-2 (the inputs' precision)."""
+    B, S, H, hd, Skv = shape
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, S, H, hd), (B, Skv, H, hd), (B, Skv, H, hd)))
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(
+        q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    q = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError):  # a CPU operand next to CUDA ones
+        flash_attention_kernel(q, q.cpu(), q)
+    wide = torch.zeros(1, 8, 2, 192, device=cuda_device)
+    with pytest.raises(ValueError):  # hd > 128
+        flash_attention_kernel(wide, wide, wide)
+    ints = torch.zeros(1, 8, 2, 16, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention_kernel(ints, ints, ints)
+    with pytest.raises(TypeError):  # k in another dtype than q
+        flash_attention_kernel(q, q.bfloat16(), q)
+
+
+def test_attn_apply_launches_the_kernel(cuda_device):
+    cfg = dataclasses.replace(smoke_config(get_config("llama3.2-1b")),
+                              n_kv_heads=2, use_pallas_attention=True)
+    attn = L.Attention(cfg, torch.float32, cuda_device)
+    attn.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    x = torch.randn(2, 40, cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(1))
+    before = flash_attention_kernel.launches
+    got, _ = L.attn_apply(attn, cfg, x)
+    assert flash_attention_kernel.launches == before + 1
+    plain, _ = L.attn_apply(attn, dataclasses.replace(
+        cfg, use_pallas_attention=False), x)
+    assert flash_attention_kernel.launches == before + 1
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)

@@ -20,7 +20,10 @@ def test_port_imports_load_no_jax_and_no_reference_module():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
-        "import repro_torch.obs\n"
+        "import repro_torch.obs, repro_torch.configs, repro_torch.train_lib\n"
+        "import repro_torch.models.transformer, repro_torch.models.convert\n"
+        "import repro_torch.launch.serve\n"
+        "repro_torch.configs.get_config('llama3.2-1b')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
