@@ -9,11 +9,18 @@ with the fractal-sort scheduler).
 Phases, each fatal on failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build every CUDA source of ``src/repro_torch/kernels/csrc`` (timed);
+2. build every CUDA source of ``src/repro_torch/kernels/csrc`` (timed),
+   print each kernel's registers and fail on any spill (``-Xptxas -v``),
+   and count the tensor-core ``HMMA`` instructions of every K5 instance in
+   the built library's SASS (``cuobjdump -sass``; fails on 0);
 3. every kernel (K1 histogram, K2 one-hot rank, K3 scatter rank, K4
    reconstruct) against its plain PyTorch version on the card, bit-exact
    (tolerance 0: integer outputs), at n in {1, 1000, 2**20 + 37} and
-   n_bins in {16, 256, 2**16};
+   n_bins in {16, 256, 2**16}; K2 also over n in {1, 1000, 4095, 4096,
+   4097, 8191, 8192, 8193, 2**20 + 37} (the look-back tile is 8192 keys)
+   x n_bins in {1, 2, 16, 256, 257, 2**16} (both sides of its switch
+   between the look-back sweep and the table path) on uniform, zipf(1.2)
+   and one-bin digits with -1 and n_bins pads;
 4. the main path at n = 2**log2n keys (default 2**27 = 512 MiB of uint32
    keys, the smallest data set of the paper's evaluation), generated from
    ``--seed``: ``fractal_sort`` at p = 32 and p = 16 on uniform and
@@ -24,16 +31,21 @@ Phases, each fatal on failure:
    on int64, used here only as the check;
 5. the kernels' launch counts over phase 4 (each must be > 0);
 6. per-kernel times at the main path's shapes beside their bounds, the
-   plain versions and one PyTorch library call, and the end-to-end sort
-   time beside ``torch.sort``;
+   plain versions and one PyTorch library call (each timed one call at a
+   time between two CUDA events, the wrapper's host time included), a
+   profiler check that one K2 call at 16 bins runs one kernel of its own
+   (no count walk, no scan), and the end-to-end sort time beside
+   ``torch.sort``; the log line of the redesigned K2 also names its first
+   version's time, a constant of an earlier run that no metric reads;
 
 then, with the sort data freed and TF32 off for float32 matmuls:
 
 7. K5 (flash attention) against its plain version (the naive fp32
-   oracle) on the card at the reference's test shapes, at hd 96 and 128,
-   causal and not, and at the prefill shape q, k, v (2, 2048, 32, 64);
-   tolerance fp32 2e-5 (1e-4 at S = 2048: 2048-term sums in another
-   order), bf16 2e-2;
+   oracle) on the card at the reference's test shapes, at hd 8, 80, 96
+   and 128, at Sq = 1 and Skv != Sq, with a q that is a strided slice of
+   a wider tensor, causal and not, and at the prefill shape q, k, v
+   (2, 2048, 32, 64); tolerance fp32 2e-5 (1e-4 at S = 2048: 2048-term
+   sums in another order), bf16 2e-2;
 8. prefill: llama3.2-1b at full width and depth (``--lm-layers`` cuts
    depth for a rehearsal), fp32 weights from ``--seed``, B = 2 prompts of
    S = 2048 tokens through ``make_prefill_step`` with the kernel switch on
@@ -45,7 +57,13 @@ then, with the sort data freed and TF32 off for float32 matmuls:
    answered; K1 and K2 launched by the scheduler's sorts);
 10. K5 times at the prefill shape (fp32 and bf16) beside the bound, the
    plain version and ``scaled_dot_product_attention`` (timed as the
-   yardstick only; the port never calls it), prefill ms and serve tokens/s.
+   yardstick only; the port never calls it), with the first version's
+   time and fp32-FMA bound on the log line only; prefill ms and serve
+   tokens/s.
+
+Each phase draws its data from its own generator, seeded with
+``(--seed, phase)``, so a check added to one phase changes no other
+phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9).
 
@@ -58,6 +76,9 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,9 +90,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
-# H100 SXM dense peaks, NVIDIA data sheet: fp32 outside the tensor cores
-# (no TF32) and bf16 on the tensor cores
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM dense peaks, NVIDIA data sheet: fp32 outside the tensor cores,
+# TF32 and bf16 on the tensor cores
+FP32_FMA_FLOPS, TF32_FLOPS, BF16_FLOPS = 67e12, 495e12, 989e12
+# K5's route per dtype: (products a product, peak) -- fp32 runs 3xTF32
+K5_ROUTE = {"float32": (3, TF32_FLOPS, "3xTF32 on the TF32 tensor cores"),
+            "bfloat16": (1, BF16_FLOPS, "bf16 tensor cores")}
+# the first versions' times on the H100, from earlier runs of this script
+# (PERF.md); printed on the log lines beside this run's times, never in the
+# kernel table
+FIRST_VERSION_MS = {"fractal_rank_kernel": 1.122, "k5_float32": 1.565,
+                    "k5_bfloat16": 1.580}
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048  # prompts and tokens a prompt
 
 
@@ -80,7 +109,8 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, warmup: int = 2, iters: int = 7) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    """Median time of one call of ``fn`` in ms (CUDA events around each
+    call, so the host's time to enqueue it counts too)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -94,6 +124,11 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def phase_rng(seed: int, phase: int) -> np.random.Generator:
+    """The generator of one phase's data."""
+    return np.random.default_rng([seed, phase])
 
 
 def profile_call(fn, top: int = 15) -> dict:
@@ -142,17 +177,52 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
 
 def attention_bound_ms(B: int, Sq: int, Skv: int, H: int, hd: int,
                        causal: bool, dtype: torch.dtype) -> tuple:
-    """The least time of one attention call on the card: the larger of its
-    QK^T and PV flops (4 * B * H * hd a visible (q, k) pair) over the
-    dtype's peak and its bytes (q, k, v read once, out written once) over
-    the memory rate.  Returns (ms, "operations" or "bytes")."""
+    """The least time of one attention call on the card by K5's route: the
+    larger of its QK^T and PV flops (4 * B * H * hd a visible (q, k) pair,
+    three times over for 3xTF32) over the route's peak and its bytes (q, k,
+    v read once, out written once) over the memory rate.  Returns (ms,
+    "operations" or "bytes", the route, the fp32-FMA bound of the first
+    version in ms: the same flops on the fp32 FMA pipes)."""
     pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
              else Sq * Skv)
     flops = 4 * B * H * hd * pairs
     nbytes = (2 * B * Sq + 2 * B * Skv) * H * hd * torch.finfo(dtype).bits // 8
-    op_ms = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+    times, peak, route = K5_ROUTE[str(dtype).removeprefix("torch.")]
+    op_ms = times * flops / peak * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes",
+            route, max(flops / FP32_FMA_FLOPS * 1e3, byte_ms))
+
+
+def kernel_names(fn) -> list:
+    """The device kernels one warm call of ``fn`` runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages()
+            if "CUDA" in str(ev.device_type) for _ in range(ev.count)]
+
+
+def sass_hmma_counts(lib: Path) -> dict:
+    """HMMA (tensor-core) instructions per kernel in ``lib``'s SASS."""
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
@@ -174,7 +244,7 @@ def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max()) if err.numel() else 0.0
 
 
-def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
+def lm_phases(args, dev, card: str, path_counts: dict) -> tuple:
     """Phases 7-10: K5 against its plain version, llama3.2-1b prefill and
     serve on the card, and their times.  Adds the prefill and serve
     launch counts to ``path_counts``; returns (kernel table rows, e2e
@@ -197,7 +267,7 @@ def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
         cfg = dataclasses.replace(cfg, n_layers=args.lm_layers)
     H, hd = cfg.n_heads, cfg.resolved_head_dim
 
-    def qkv(shape, dtype):
+    def qkv(rng, shape, dtype):
         b, sq, h, d, skv = shape
         return tuple(torch.from_numpy(rng.standard_normal(sh, np.float32)).to(
             dev, dtype) for sh in ((b, sq, h, d), (b, skv, h, d),
@@ -205,26 +275,39 @@ def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
 
     # -- 7. K5 against its plain version ----------------------------------------
     t0 = time.perf_counter()
+    rng = phase_rng(args.seed, 7)
     k5_err = {"float32": 0.0, "bfloat16": 0.0}
     full = (B, S, H, hd, S)
-    # the reference's test shapes, two head dims of the kernel's 128-wide
-    # instance, and the prefill shape
-    for shape in ((2, 64, 4, 16, 64), (1, 48, 2, 8, 80), (2, 100, 2, 32, 100),
-                  (2, 33, 2, 96, 65), (1, 130, 2, 128, 70), full):
+    # (B, Sq, H, hd, Skv, q a strided slice): the reference's test shapes,
+    # one query row, fewer keys than queries, hd 8 and 80 (zero-padded to
+    # the fragment depth), hd 96 and 128, an hd that takes the
+    # element-wise loads, a strided q, and the prefill shape
+    shapes = ((2, 64, 4, 16, 64, False), (1, 48, 2, 8, 80, False),
+              (2, 100, 2, 32, 100, False), (2, 1, 3, 64, 70, False),
+              (1, 150, 2, 64, 40, False), (2, 77, 2, 8, 77, False),
+              (1, 90, 2, 80, 130, False), (2, 33, 2, 96, 65, False),
+              (1, 130, 2, 128, 70, False), (1, 33, 2, 20, 47, False),
+              (2, 65, 2, 64, 65, True), (*full, False))
+    for *shape, strided in shapes:
+        shape = tuple(shape)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             tol = (2e-2 if dtype == torch.bfloat16
                    else 1e-4 if shape == full else 2e-5)
-            q, k, v = qkv(shape, dtype)
+            q, k, v = qkv(rng, shape, dtype)
+            if strided:  # heads [1:1+H] and hd [0:hd) of a wider tensor
+                b, sq, h, d, _ = shape
+                q = qkv(rng, (b, sq, h + 2, d + 16, 1),
+                        dtype)[0][:, :, 1:1 + h, :d]
             for causal in (True, False):
                 err = check_close(
-                    f"K5 {dname} {shape} causal={causal}",
+                    f"K5 {dname} {shape} strided q={strided} causal={causal}",
                     flash_attention_kernel(q, k, v, causal=causal),
                     ref.flash_attention_ref(q, k, v, causal=causal), tol)
                 k5_err[dname] = max(k5_err[dname], err)
             del q, k, v
     log(f"[kernels] K5 flash attention within tolerance of its plain "
-        f"version at 6 shapes x causal/not x fp32/bf16 "
+        f"version at {len(shapes)} shapes x causal/not x fp32/bf16 "
         f"({time.perf_counter() - t0:.1f} s); max |err| {json.dumps(k5_err)}")
 
     # -- 8. prefill ----------------------------------------------------------------
@@ -232,8 +315,8 @@ def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = T.Transformer(cfg, device=dev).init_params(gen)
     n_params = sum(p.numel() for p in model.parameters())
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)).to(dev)
+    tokens = torch.from_numpy(phase_rng(args.seed, 8).integers(
+        0, cfg.vocab, (B, S)).astype(np.int64)).to(dev)
     batch = {"tokens": tokens}
     prefill = make_prefill_step(dataclasses.replace(
         cfg, use_pallas_attention=True))
@@ -279,7 +362,7 @@ def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
     del logits, dec, cache, step_logits
     log(f"[serve] {steps} decode steps within 1e-3 of the prefill logits "
         f"(max |err| {decode_err:.3e})")
-    requests = make_requests(8, cfg.vocab, rng)
+    requests = make_requests(8, cfg.vocab, phase_rng(args.seed, 9))
     on_card, on_cpu = FractalScheduler(dev), FractalScheduler("cpu")
     for r in requests:
         on_card.add(r)
@@ -311,24 +394,28 @@ def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
 
     # -- 10. times -------------------------------------------------------------------
     table = []
+    rng = phase_rng(args.seed, 10)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
-        q, k, v = qkv(full, dtype)
+        q, k, v = qkv(rng, full, dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        bound, bound_by = attention_bound_ms(B, S, S, H, hd, True, dtype)
+        bound, bound_by, route, fma_bound = attention_bound_ms(
+            B, S, S, H, hd, True, dtype)
         row = {
             "ms": cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True)),
             "plain_ms": cuda_ms(
                 lambda: ref.flash_attention_ref(q, k, v, causal=True), 1, 3),
-            "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms": bound, "bound_by": bound_by, "bound_route": route,
             "library_ms": cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True)),
             "max_abs_err": k5_err[dname],
         }
         log(f"[time] K5 {dname} (q, k, v {full[:4]}, causal): {row['ms']:.3f} "
-            f"ms, bound {bound:.3f} ms ({bound_by}), plain "
-            f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms")
+            f"ms, bound {bound:.3f} ms ({bound_by}, {route}), plain "
+            f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms; "
+            f"earlier runs: first version {FIRST_VERSION_MS[f'k5_{dname}']} "
+            f"ms, its fp32-FMA bound {fma_bound:.3f} ms")
         if dtype == torch.float32:
             entry = {"name": "flash_attention_kernel", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -344,7 +431,8 @@ def lm_phases(args, rng, dev, card: str, path_counts: dict) -> tuple:
         log(json.dumps({"profile_prefill": profile_call(
             lambda: prefill(model, batch)), "card": card}))
         log(json.dumps({"profile_serve": profile_call(
-            lambda: serve(model, make_requests(8, cfg.vocab, rng), 4, 96)),
+            lambda: serve(model, make_requests(
+                8, cfg.vocab, phase_rng(args.seed, 9)), 4, 96)),
             "card": card}))
     prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
     prefill_plain_ms = cuda_ms(lambda: prefill_plain(model, batch), 1, 3)
@@ -394,7 +482,6 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
     t_all = time.perf_counter()
 
     # -- 1. the card ----------------------------------------------------------
@@ -409,10 +496,28 @@ def main() -> int:
     _build.build_all()
     log(f"[build] {len(_build.build_log)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s (0 when already built)")
+    spills = []
     for name, text in sorted(_build.build_log.items()):
+        kernel = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = m.group(1)
+            if "registers" in line:
+                log(f"[build] {name}: {(kernel or '')[:100]}: "
+                    f"{line.split(':', 1)[-1].strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append(f"{kernel}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"register spills: {spills}")
+    hmma = {fn: c for fn, c in sass_hmma_counts(
+        _build.library_file("flash_attention")).items() if "flash_kernel" in fn}
+    log(f"[build] K5 SASS HMMA instructions by instance: {json.dumps(hmma)}; "
+        f"total {sum(hmma.values())}")
+    if not hmma or min(hmma.values()) == 0:
+        raise AssertionError(f"a K5 instance has no HMMA instruction: {hmma}")
 
     # -- 3. kernel vs plain, bit-exact -----------------------------------------
     errs = {k: 0 for k in ops.SORT_KERNELS}
@@ -426,6 +531,7 @@ def main() -> int:
                                  f"version at {what}: max |err| = {err}")
 
     t0 = time.perf_counter()
+    rng = phase_rng(args.seed, 3)
     cases = 0
     for n in (1, 1000, (1 << 20) + 37):
         for n_bins in (16, 256, 1 << 16):
@@ -466,6 +572,30 @@ def main() -> int:
                 agree("fractal_reconstruct", u32_to_int64(got), su,
                       f"{what} t={t} p={p} vs sorted keys")
             cases += 1
+    # K2 on both sides of its look-back / table switch, tile edges, skew
+    k2_cases = 0
+    for n in (1, 1000, 4095, 4096, 4097, 8191, 8192, 8193, (1 << 20) + 37):
+        for n_bins in (1, 2, 16, 256, 257, 1 << 16):
+            for dist in ("uniform", "zipf", "one_bin"):
+                if dist == "uniform":
+                    d = rng.integers(0, n_bins, n)
+                elif dist == "zipf":
+                    d = np.minimum(rng.zipf(1.2, n) - 1, n_bins - 1)
+                else:
+                    d = np.full(n, rng.integers(0, n_bins))
+                d = d.astype(np.int32)
+                d[rng.random(n) < 0.01] = -1
+                d[rng.random(n) < 0.01] = n_bins
+                keys = torch.from_numpy(d).to(dev)
+                start = torch.from_numpy(
+                    rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(dev)
+                agree("fractal_rank_kernel",
+                      fractal_rank_kernel(keys, start, n_bins),
+                      ref.rank_ref(keys, start, n_bins),
+                      f"n={n} n_bins={n_bins} {dist}")
+                k2_cases += 1
+    log(f"[kernels] K2 bit-exact over {k2_cases} cases (n x n_bins x "
+        f"uniform/zipf/one-bin, with pads)")
     # the histogram's init carried over ragged chunks equals one histogram
     d = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 37).astype(np.int32)).to(dev)
     carried = None
@@ -480,6 +610,7 @@ def main() -> int:
     # -- 4. the main path at n = 2**log2n ------------------------------------------
     n = 1 << args.log2n
     t0 = time.perf_counter()
+    rng = phase_rng(args.seed, 4)
     uni32 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     zipf = rng.zipf(1.2, n)
     data = {
@@ -617,7 +748,17 @@ def main() -> int:
         table.append(entry)
         log(f"[time] {name} ({shape}): {entry['ms']:.3f} ms, bound "
             f"{entry['bound_ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-            f"library {entry['library_ms']:.3f} ms")
+            f"library {entry['library_ms']:.3f} ms"
+            + (f"; earlier run: first version {FIRST_VERSION_MS[name]} ms"
+               if name in FIRST_VERSION_MS else ""))
+    # K2 at 16 bins is one launch of its own: no count walk, no scan
+    names = kernel_names(lambda: fractal_rank_kernel(d16, s16, 16))
+    own = [k for k in names if "FillFunctor" not in k and "emset" not in k]
+    log(f"[kernels] one K2 call at n=2**{args.log2n}, 16 bins runs "
+        f"{json.dumps(names)}")
+    if len(own) != 1 or "lookback_rank_kernel" not in own[0]:
+        raise AssertionError(f"K2 at 16 bins ran {own}, expected the one "
+                             f"look-back kernel")
     del d16, d256, sorted_keys, trail, slots
 
     # the 16b+16b plan's shapes at n = 2**24: 2**16-bin digits, MSD t = 16
@@ -678,7 +819,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"after freeing the sort data")
-    lm_table, lm_e2e = lm_phases(args, rng, dev, card, path_counts)
+    lm_table, lm_e2e = lm_phases(args, dev, card, path_counts)
     table += lm_table
     e2e += lm_e2e
 

@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "build_all", "library",
-           "check", "check_operand", "stream"]
+           "library_file", "check", "check_operand", "stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
@@ -105,6 +105,11 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def library_file(name: str) -> Path:
+    """Where :func:`build_all` puts the library of ``csrc/<name>.cu``."""
+    return BUILD_ROOT / _sources_hash() / f"lib{name}.so"
 
 
 def check(code: int, what: str) -> None:

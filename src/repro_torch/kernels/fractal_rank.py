@@ -8,7 +8,10 @@ stream ``keys`` in ``[0, n_bins)`` and exclusive bin starts,
 :func:`fractal_rank_kernel` (K2, the reference's one-hot engine) and
 :func:`fractal_rank_scatter_kernel` (K3, the sorted-composite engine) are
 separate kernels with separate launch counters.  The reference carries
-the running per-bin count across a sequential grid; here it is an
+the running per-bin count across a sequential grid.  Here K2 carries it
+up to :data:`LOOKBACK_MAX_BINS` bins by decoupled look-back between
+tiles, in one launch over a zeroed status buffer
+(:func:`lookback_status_bytes`); above that, and always for K3, it is an
 explicit scan over an ``(n_bins, tiles)`` table of per-tile counts (see
 the note in the CUDA source).  The table is refused above
 :data:`TABLE_CAP` entries.
@@ -32,12 +35,17 @@ from repro_torch.kernels.fractal_histogram import fractal_histogram
 
 __all__ = [
     "DEFAULT_BLOCK",
+    "LOOKBACK_MAX_BINS",
+    "LOOKBACK_TILE",
     "TABLE_CAP",
     "fractal_rank_kernel",
     "fractal_rank_scatter_kernel",
     "fractal_rank_counts",
     "fractal_rank_digit",
+    "lookback_status_bytes",
+    "lookback_tiles",
     "onehot_tile_len",
+    "uses_lookback",
 ]
 
 DEFAULT_BLOCK = 1024
@@ -49,21 +57,51 @@ _MAX_BINS = 1 << 16
 #: streams pass the cap.
 TABLE_CAP = 1 << 28
 
+#: K2's one-sweep path: keys a tile (256 threads x 32; the kernel's own,
+#: checked when the library loads), and the most bins it takes (one
+#: look-back thread a bin); wider digits take the table path
+LOOKBACK_TILE = 8192
+LOOKBACK_MAX_BINS = 256
+
 
 @functools.cache
 def _lib():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    return _build.library("fractal_rank", {
+    lib = _build.library("fractal_rank", {
         "fs_rank_tile_counts": [vp, ll, vp, i, i, vp],
         "fs_rank_onehot": [vp, ll, vp, vp, i, i, vp],
+        "fs_rank_lookback": [vp, ll, vp, vp, i, vp, vp],
+        "fs_rank_lookback_tile": [],
         "fs_rank_scatter": [vp, ll, vp, vp, i, i, vp],
     })
+    tile = lib.fs_rank_lookback_tile()
+    if tile != LOOKBACK_TILE:
+        raise RuntimeError(f"the look-back kernel's tile is {tile} keys, "
+                           f"LOOKBACK_TILE is {LOOKBACK_TILE}")
+    return lib
 
 
 def onehot_tile_len(n_bins: int, block: int = DEFAULT_BLOCK) -> int:
     """K2's tile: at least ``block`` keys and at least ``n_bins``, so the
     (n_bins, tiles) table holds no more entries than keys (plus a tile)."""
     return max(block, 1 << max(n_bins - 1, 0).bit_length())
+
+
+def uses_lookback(n_bins: int) -> bool:
+    """Whether K2 ranks ``n_bins`` bins in one look-back sweep (else count
+    walk, scan and rank walk)."""
+    return n_bins <= LOOKBACK_MAX_BINS
+
+
+def lookback_tiles(n: int) -> int:
+    """Tiles of the look-back sweep over ``n`` keys."""
+    return -(-n // LOOKBACK_TILE)
+
+
+def lookback_status_bytes(n: int, n_bins: int) -> int:
+    """Bytes of the look-back status buffer: one 64-bit word per (tile,
+    bin), then the tile counter."""
+    return 8 * (lookback_tiles(n) * n_bins + 1)
 
 
 def _check_args(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int):
@@ -102,7 +140,8 @@ def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
                         block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """K2: stable output slot per key given exclusive bin starts.
     ``keys`` is int32 in ``[0, n_bins)``; ``bin_start`` is ``(n_bins,)``
-    int32.  Keys outside the range get rank 0."""
+    int32.  Keys outside the range get rank 0.  ``block`` sets the tile
+    of the table path (above :data:`LOOKBACK_MAX_BINS` bins)."""
     if keys.device.type == "cpu":
         return ref.rank_ref(keys, bin_start, n_bins)
     _check_args(keys, bin_start, n_bins)
@@ -110,7 +149,15 @@ def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
         raise ValueError(f"block={block} must be positive")
     n = keys.shape[0]
     rank = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    if n:
+    if n and uses_lookback(n_bins):
+        status = torch.zeros(lookback_status_bytes(n, n_bins) // 8,
+                             dtype=torch.int64, device=keys.device)
+        _build.check(_lib().fs_rank_lookback(
+            keys.data_ptr(), n, bin_start.data_ptr(), rank.data_ptr(),
+            n_bins, status.data_ptr(), _build.stream(keys.device)),
+            "fractal_rank_kernel")
+        fractal_rank_kernel.launches += 1
+    elif n:
         tile = onehot_tile_len(n_bins, block)
         starts = _tile_starts(keys, bin_start, n_bins, tile)
         _build.check(_lib().fs_rank_onehot(

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import (fractal_argsort, fractal_sort,
                               fractal_sort_pairs, make_sort_plan)
+from repro_torch.kernels import fractal_rank as rank_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.fractal_histogram import fractal_histogram
@@ -55,6 +56,72 @@ def test_kernels_match_plain_versions(rng, cuda_device, n_bins):
     counts = ref.histogram_ref(s, n_bins)
     assert torch.equal(
         fractal_reconstruct(counts, torch.zeros_like(s), n_bins, 0), s)
+
+
+def _digits(rng, n, n_bins, dist):
+    """Digit streams: uniform, zipf(1.2)-skewed, all in one bin; 2 % are
+    -1 and n_bins pads."""
+    if dist == "uniform":
+        d = rng.integers(0, n_bins, n)
+    elif dist == "zipf":
+        d = np.minimum(rng.zipf(1.2, n) - 1, n_bins - 1)
+    else:
+        d = np.full(n, rng.integers(0, n_bins))
+    d = d.astype(np.int32)
+    d[rng.random(n) < 0.01] = -1
+    d[rng.random(n) < 0.01] = n_bins
+    return d
+
+
+@pytest.mark.parametrize("n_bins", [1, 2, 16, 256, 257])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_rank_lookback_matches_plain_version(rng, cuda_device, n_bins, dist):
+    """Across the look-back tile (8192 keys) boundaries, on skewed keys and
+    with pads; 257 bins takes the table path."""
+    for n in (1, 4095, 8191, 8192, 8193, 3 * 8192 + 5, 100_003):
+        keys = torch.from_numpy(_digits(rng, n, n_bins, dist)).to(cuda_device)
+        start = torch.from_numpy(
+            rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(cuda_device)
+        assert torch.equal(fractal_rank_kernel(keys, start, n_bins),
+                           ref.rank_ref(keys, start, n_bins)), n
+
+
+def test_rank_lookback_unaligned_keys(rng, cuda_device):
+    """A digit stream that starts off a 16-byte boundary stages its tiles
+    element by element."""
+    base = torch.from_numpy(rng.integers(0, 16, 20_001).astype(np.int32)
+                            ).to(cuda_device)
+    keys = base[1:]
+    start = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    assert keys.data_ptr() % 16 != 0
+    assert torch.equal(fractal_rank_kernel(keys, start, 16),
+                       ref.rank_ref(keys, start, 16))
+
+
+@pytest.mark.parametrize("n_bins,table", [(16, False), (256, False),
+                                          (257, True), (1 << 16, True)])
+def test_rank_table_walk_only_above_256_bins(rng, cuda_device, monkeypatch,
+                                             n_bins, table):
+    """Up to 256 bins K2 is the one look-back launch: no count walk."""
+    lib = rank_mod._lib()
+    called = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            called.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(rank_mod, "_lib", Recorder)
+    keys = torch.from_numpy(rng.integers(0, n_bins, 50_000).astype(np.int32)
+                            ).to(cuda_device)
+    start = torch.zeros(n_bins, dtype=torch.int32, device=cuda_device)
+    before = fractal_rank_kernel.launches
+    got = fractal_rank_kernel(keys, start, n_bins)
+    assert fractal_rank_kernel.launches == before + 1
+    assert torch.equal(got, ref.rank_ref(keys, start, n_bins))
+    want = (["fs_rank_tile_counts", "fs_rank_onehot"] if table
+            else ["fs_rank_lookback"])
+    assert called == want
 
 
 def test_sort_entry_points_launch_the_kernels(rng, cuda_device):
@@ -109,6 +176,37 @@ def test_flash_attention_kernel_matches_oracle(rng, cuda_device, shape, dtype,
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(
+        q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["sq1", "skv_lt_sq", "hd8", "hd80",
+                                  "strided_q", "odd_hd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_edge_shapes(rng, cuda_device, case, dtype,
+                                            causal):
+    """One query row, more queries than keys, hd 8 and 80 (zero-padded to
+    the fragment depth), a q that is a strided slice of a wider tensor,
+    and an hd that takes the element-wise loads."""
+    B, Sq, H, hd, Skv = {"sq1": (2, 1, 3, 64, 70),
+                         "skv_lt_sq": (1, 150, 2, 64, 40),
+                         "hd8": (2, 77, 2, 8, 77), "hd80": (1, 90, 2, 80, 130),
+                         "strided_q": (2, 65, 2, 64, 65),
+                         "odd_hd": (1, 33, 2, 20, 47)}[case]
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(cuda_device, dtype)
+
+    if case == "strided_q":  # q is heads [1:3] of a 4-head tensor, hd [0:64)
+        q = rand(B, Sq, H + 2, hd + 16)[:, :, 1:1 + H, :hd]
+        assert not q.is_contiguous()
+    else:
+        q = rand(B, Sq, H, hd)
+    k, v = rand(B, Skv, H, hd), rand(B, Skv, H, hd)
+    got = flash_attention_kernel(q, k, v, causal=causal)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.flash_attention_ref(
         q, k, v, causal=causal).float(), rtol=tol, atol=tol)
