@@ -16,11 +16,18 @@ Phases, each fatal on failure:
 3. every kernel (K1 histogram, K2 one-hot rank, K3 scatter rank, K4
    reconstruct) against its plain PyTorch version on the card, bit-exact
    (tolerance 0: integer outputs), at n in {1, 1000, 2**20 + 37} and
-   n_bins in {16, 256, 2**16}; K2 also over n in {1, 1000, 4095, 4096,
-   4097, 8191, 8192, 8193, 2**20 + 37} (the look-back tile is 8192 keys)
-   x n_bins in {1, 2, 16, 256, 257, 2**16} (both sides of its switch
-   between the look-back sweep and the table path) on uniform, zipf(1.2)
-   and one-bin digits with -1 and n_bins pads;
+   n_bins in {16, 256, 2**16}; K2 and K3 also over n in {1, 1000, 4095,
+   4096, 4097, 8191, 8192, 8193, 2**20 + 37} (both look-back tiles are
+   8192 keys) x n_bins in {1, 2, 16, 256, 257, 2**16} (both sides of
+   their switch between the look-back sweep and the table path) on
+   uniform, zipf(1.2) and one-bin digits with -1 and n_bins pads, K3 also
+   at 2**16 bins over n = 2**22 and on an unaligned stream; K1 over n in
+   {1, 31, 4095, 4097, 2**20 + 37} x n_bins in {1, 2, 15, 16, 17, 32, 33,
+   256, 2**14, 2**14 + 1, 2**16} on streams 0-3 elements off a 16-byte
+   boundary, with pads, with and without init; K1's one-sweep entry
+   against per-digit plain histograms for the p = 32, 16, 7 and 8-bit
+   plans at n in {1, 4097, 2**20 + 37}, aligned and not, with and without
+   init;
 4. the main path at n = 2**log2n keys (default 2**27 = 512 MiB of uint32
    keys, the smallest data set of the paper's evaluation), generated from
    ``--seed``: ``fractal_sort`` at p = 32 and p = 16 on uniform and
@@ -29,14 +36,19 @@ Phases, each fatal on failure:
    16b+16b plan at n = 2**24 (also through the torch-op backend); every
    result bit-exact against ``torch.sort``/``torch.argsort(stable=True)``
    on int64, used here only as the check;
-5. the kernels' launch counts over phase 4 (each must be > 0);
+5. the kernels' launch counts over phase 4 (each must be > 0), and the
+   kernels one warm p = 32 sort launches (by counter and by profiler;
+   fails unless K1 is launched once, as the one sweep);
 6. per-kernel times at the main path's shapes beside their bounds, the
    plain versions and one PyTorch library call (each timed one call at a
    time between two CUDA events, the wrapper's host time included), a
    profiler check that one K2 call at 16 bins runs one kernel of its own
    (no count walk, no scan), and the end-to-end sort time beside
-   ``torch.sort``; the log line of the redesigned K2 also names its first
-   version's time, a constant of an earlier run that no metric reads;
+   ``torch.sort``; K1's one sweep over the p = 32 plan's 8 digits; K2
+   at 256 bins on a log line (the yardstick of K3 there); the log lines
+   of the redesigned K1, K2 and K3 also name their first versions'
+   times, constants of earlier runs that no metric reads; with
+   ``--profile``, the device time of one call of K1, its sweep and K3;
 
 then, with the sort data freed and TF32 off for float32 matmuls:
 
@@ -99,7 +111,8 @@ K5_ROUTE = {"float32": (3, TF32_FLOPS, "3xTF32 on the TF32 tensor cores"),
 # the first versions' times on the H100, from earlier runs of this script
 # (PERF.md); printed on the log lines beside this run's times, never in the
 # kernel table
-FIRST_VERSION_MS = {"fractal_rank_kernel": 1.122, "k5_float32": 1.565,
+FIRST_VERSION_MS = {"fractal_histogram": 0.674, "fractal_rank_kernel": 1.122,
+                    "fractal_rank_scatter_kernel": 4.778, "k5_float32": 1.565,
                     "k5_bfloat16": 1.580}
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048  # prompts and tokens a prompt
 
@@ -459,7 +472,8 @@ def main() -> int:
     ap.add_argument("--log2n", type=int, default=27,
                     help="main-path key count 2**log2n (default 27)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one p=32 sort and one prefill with "
+                    help="also trace one p=32 sort, one call of K1, its "
+                         "sweep and K3, one prefill and one serve with "
                          "torch.profiler and print device time by kernel "
                          "and op")
     ap.add_argument("--lm-layers", type=int, default=None,
@@ -475,11 +489,11 @@ def main() -> int:
                                   make_sort_plan)
     from repro_torch.core.fractal_tree import u32_to_int64
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.fractal_histogram import fractal_histogram
+    from repro_torch.kernels.fractal_histogram import (
+        fractal_histogram, fractal_histogram_digits)
     from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
                                                   fractal_rank_scatter_kernel)
     from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -572,7 +586,8 @@ def main() -> int:
                 agree("fractal_reconstruct", u32_to_int64(got), su,
                       f"{what} t={t} p={p} vs sorted keys")
             cases += 1
-    # K2 on both sides of its look-back / table switch, tile edges, skew
+    # K2 and K3 on both sides of their look-back / table switch, tile
+    # edges, skew
     k2_cases = 0
     for n in (1, 1000, 4095, 4096, 4097, 8191, 8192, 8193, (1 << 20) + 37):
         for n_bins in (1, 2, 16, 256, 257, 1 << 16):
@@ -589,13 +604,71 @@ def main() -> int:
                 keys = torch.from_numpy(d).to(dev)
                 start = torch.from_numpy(
                     rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(dev)
+                want = ref.rank_ref(keys, start, n_bins)
+                what = f"n={n} n_bins={n_bins} {dist}"
                 agree("fractal_rank_kernel",
-                      fractal_rank_kernel(keys, start, n_bins),
-                      ref.rank_ref(keys, start, n_bins),
-                      f"n={n} n_bins={n_bins} {dist}")
+                      fractal_rank_kernel(keys, start, n_bins), want, what)
+                agree("fractal_rank_scatter_kernel",
+                      fractal_rank_scatter_kernel(keys, start, n_bins), want,
+                      what)
                 k2_cases += 1
-    log(f"[kernels] K2 bit-exact over {k2_cases} cases (n x n_bins x "
-        f"uniform/zipf/one-bin, with pads)")
+    log(f"[kernels] K2 and K3 bit-exact over {k2_cases} cases each (n x "
+        f"n_bins x uniform/zipf/one-bin, with pads)")
+    # K3: its widest table (2**16 bins at n = 2**22) and an unaligned stream
+    for n, n_bins, off in ((1 << 22, 1 << 16, 0), (50_001, 256, 1),
+                           (50_001, 257, 3)):
+        d = rng.integers(-1, n_bins + 1, n + off).astype(np.int32)
+        keys = torch.from_numpy(d).to(dev)[off:]
+        start = torch.from_numpy(
+            rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(dev)
+        agree("fractal_rank_scatter_kernel",
+              fractal_rank_scatter_kernel(keys, start, n_bins),
+              ref.rank_ref(keys, start, n_bins),
+              f"n={n} n_bins={n_bins} offset {off}")
+    # K1: register, shared and global counting; unaligned, ragged streams
+    k1_cases = 0
+    for n in (1, 31, 4095, 4097, (1 << 20) + 37):
+        for n_bins in (1, 2, 15, 16, 17, 32, 33, 256, 1 << 14,
+                       (1 << 14) + 1, 1 << 16):
+            d = rng.integers(-1, n_bins + 1, n + 3).astype(np.int32)
+            base = torch.from_numpy(d).to(dev)
+            init = torch.from_numpy(
+                rng.integers(0, 1000, n_bins).astype(np.int32)).to(dev)
+            for off in (0, 1, 2, 3):
+                keys = base[off:off + n]
+                what = f"n={n} n_bins={n_bins} offset {off}"
+                agree("fractal_histogram", fractal_histogram(keys, n_bins),
+                      ref.histogram_ref(keys, n_bins), what)
+                agree("fractal_histogram",
+                      fractal_histogram(keys, n_bins, init=init),
+                      ref.histogram_ref(keys, n_bins, init=init),
+                      what + " init")
+                k1_cases += 1
+    # K1's one sweep: every digit of a plan against per-digit histograms
+    sweep_cases = 0
+    for n in (1, 4097, (1 << 20) + 37):
+        raw = torch.from_numpy(rng.integers(0, 1 << 32, n + 3, dtype=np.uint64)
+                               .astype(np.uint32)).to(dev)
+        for passes in (make_sort_plan(n, 32).passes,
+                       make_sort_plan(n, 16).passes,
+                       make_sort_plan(n, 7).passes,
+                       make_sort_plan(n, 32, max_bins_log2=8,
+                                      engine="scatter").passes):
+            init = tuple(torch.from_numpy(rng.integers(
+                0, 100, dp.n_bins).astype(np.int32)).to(dev) for dp in passes)
+            for off in (0, 3):
+                keys = raw[off:off + n]
+                for carried in (None, init):
+                    got = fractal_histogram_digits(keys, passes, init=carried)
+                    want = ref.digit_histograms_ref(keys, passes, init=carried)
+                    for dp, g, w in zip(passes, got, want):
+                        agree("fractal_histogram_digits", g, w,
+                              f"n={n} digit {dp} offset {off} "
+                              f"init={carried is not None}")
+                    sweep_cases += 1
+    log(f"[kernels] K1 bit-exact over {k1_cases} cases (n x n_bins x offset, "
+        f"with and without init), its one sweep over {sweep_cases} cases "
+        f"(n x plan x offset x init)")
     # the histogram's init carried over ragged chunks equals one histogram
     d = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 37).astype(np.int32)).to(dev)
     carried = None
@@ -691,6 +764,23 @@ def main() -> int:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on the sort path")
     path_counts = {"sort": counts}
+    # a warm p = 32 sort takes every pass's counts from one K1 sweep
+    keys = data[(32, "uniform")]
+    fractal_sort(keys, 32)
+    ops.reset_launch_counts()
+    fractal_sort(keys, 32)
+    warm = {k: c for k, c in ops.launch_counts().items() if c}
+    names = kernel_names(lambda: fractal_sort(keys, 32))
+    ours = [m.group(1) for m in (
+        re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", k)
+        for k in names) if m]
+    k1 = [k for k in ours if k.startswith("histogram")]
+    log(f"[launches] one warm p=32 sort: counters {json.dumps(warm)}; "
+        f"profiler, the repo's kernels: {json.dumps(ours)}")
+    if warm.get("fractal_histogram") != 1 or len(k1) != 1:
+        raise AssertionError(f"a warm p=32 sort launched K1 "
+                             f"{warm.get('fractal_histogram')} times "
+                             f"(profiler: {k1}); expected the one sweep")
 
     # -- 6. times at the main path's shapes ---------------------------------------
     kbits = keys.view(torch.int32)
@@ -699,7 +789,8 @@ def main() -> int:
     c16 = fractal_histogram(d16, 16)
     c256 = fractal_histogram(d256, 256)
     s16, s256 = exclusive_cumsum(c16), exclusive_cumsum(c256)
-    msd = make_sort_plan(n, 32).passes[-1]  # depth 4, t = 28
+    plan32 = make_sort_plan(n, 32)
+    msd = plan32.passes[-1]  # depth 4, t = 28
     sorted_keys = fractal_sort(keys, 32).view(torch.int32)
     trail = sorted_keys & ((1 << msd.shift) - 1)
     mcounts = fractal_histogram((sorted_keys >> msd.shift) & (msd.n_bins - 1),
@@ -713,6 +804,13 @@ def main() -> int:
          lambda: ref.histogram_ref(d16, 16),
          lambda: torch.bincount(d16, minlength=16),
          4 * n + 2 * 4 * 16, f"n=2**{args.log2n}, 16 bins"),
+        ("fractal_histogram_digits", "fractal_histogram.cu",
+         "src/repro/kernels/fractal_histogram.py:88",
+         lambda: fractal_histogram_digits(kbits, plan32.passes),
+         lambda: ref.digit_histograms_ref(kbits, plan32.passes),
+         None, 4 * n + 2 * 4 * sum(dp.n_bins for dp in plan32.passes),
+         f"n=2**{args.log2n}, the p=32 plan's {len(plan32.passes)} x "
+         f"{plan32.passes[0].bits}-bit digits"),
         ("fractal_rank_kernel", "fractal_rank.cu",
          "src/repro/kernels/fractal_rank.py:81",
          lambda: fractal_rank_kernel(d16, s16, 16),
@@ -735,7 +833,14 @@ def main() -> int:
     ]
     table = []
     for name, src, replaces, kern, plain, lib, nbytes, shape in rows:
-        agree(name, kern(), plain(), shape)
+        want = plain()
+        if isinstance(want, tuple):  # the sweep: one tensor per digit
+            want = torch.cat(want)
+            got = torch.cat(kern())
+        else:
+            got = kern()
+        agree(name, got, want, shape)
+        del got, want
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -743,14 +848,25 @@ def main() -> int:
             "max_abs_err": errs[name],
             "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 1, 3),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": cuda_ms(lib), "shape": shape,
+            "library_ms": None if lib is None else cuda_ms(lib),
+            "shape": shape,
         }
         table.append(entry)
+        lib_ms = entry["library_ms"]
         log(f"[time] {name} ({shape}): {entry['ms']:.3f} ms, bound "
             f"{entry['bound_ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-            f"library {entry['library_ms']:.3f} ms"
+            f"library " + ("none" if lib_ms is None else f"{lib_ms:.3f} ms")
             + (f"; earlier run: first version {FIRST_VERSION_MS[name]} ms"
                if name in FIRST_VERSION_MS else ""))
+    if args.profile:  # the redesigned kernels' own device time
+        log(json.dumps({"profile_kernels": {
+            name: profile_call(kern, top=3) for name, _, _, kern, *_ in rows
+            if name in ("fractal_histogram", "fractal_histogram_digits",
+                        "fractal_rank_scatter_kernel")}, "card": card}))
+    # K2 at 256 bins: the other engine's time where K3 runs (a yardstick)
+    log(f"[time] fractal_rank_kernel (n=2**{args.log2n}, 256 bins, the "
+        f"yardstick of K3 there): "
+        f"{cuda_ms(lambda: fractal_rank_kernel(d256, s256, 256)):.3f} ms")
     # K2 at 16 bins is one launch of its own: no count walk, no scan
     names = kernel_names(lambda: fractal_rank_kernel(d16, s16, 16))
     own = [k for k in names if "FillFunctor" not in k and "emset" not in k]

@@ -70,10 +70,20 @@ class PassBackend:
              batch_hint: Optional[int] = None,
              carry_in: Optional[torch.Tensor] = None,
              bin_start: Optional[torch.Tensor] = None,
-             engine: Optional[str] = None):
+             engine: Optional[str] = None,
+             counts: Optional[torch.Tensor] = None):
         """Stable output slot per key for one digit stream.  Returns
-        ``(rank, counts, carry_out)``; ``engine`` is the pass's hint."""
+        ``(rank, counts, carry_out)``; ``engine`` is the pass's hint;
+        ``counts`` are the digit's counts when :meth:`plan_counts` gave
+        them."""
         raise NotImplementedError
+
+    def plan_counts(self, u: torch.Tensor, plan: SortPlan):
+        """Every pass's digit counts of the key stream ``u``, plan order,
+        taken once before the pass loop (a digit's histogram does not
+        change when the keys are permuted), or None: then each pass's
+        :meth:`rank` counts its own digit.  None by default."""
+        return None
 
     def histogram(self, digit: torch.Tensor, n_bins: int,
                   init: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -101,12 +111,14 @@ class PassBackend:
         return tuple(outs)
 
     def lsd_pass_pairs(self, u: torch.Tensor, payloads: tuple,
-                       dp: DigitPass) -> tuple:
+                       dp: DigitPass,
+                       counts: Optional[torch.Tensor] = None) -> tuple:
         """One stable counting pass moving the keys and every payload to
-        the digit's rank order.  Returns ``(u, *payloads)``."""
+        the digit's rank order (``counts``: the digit's counts from
+        :meth:`plan_counts`, if any).  Returns ``(u, *payloads)``."""
         rank, _, _ = self.rank(_digit_of(u, dp), dp.n_bins,
                                batch_hint=dp.rank_batch(self.rank_base),
-                               engine=dp.engine)
+                               engine=dp.engine, counts=counts)
         return self.scatter(rank, u, *payloads)
 
     def reconstruct(self, counts: torch.Tensor, trailing: torch.Tensor,
@@ -127,7 +139,8 @@ class TorchBackend(PassBackend):
         self.rank_base = batch  # the user batch knob feeds the pass hints
 
     def rank(self, digit, n_bins, *, batch_hint=None, carry_in=None,
-             bin_start=None, engine=None):
+             bin_start=None, engine=None, counts=None):
+        # the torch-op engines count as they rank; plan_counts gives none
         from repro_torch.core.fractal_sort import rank_engine
         from repro_torch.core.sort_plan import pick_engine, scatter_tile_len
 
@@ -149,16 +162,17 @@ class TorchBackend(PassBackend):
 
 
 class CudaBackend(PassBackend):
-    """Hand-written kernel primitives: K1 histogram, K2/K3 rank (by the
-    pass's engine hint; ``None`` → the one-hot kernel K2), K4 reconstruct.
-    ``block`` is the rank kernels' tile.  Each kernel call starts from zero
-    carry, so ``carry_in`` is refused."""
+    """Hand-written kernel primitives: K1 histogram (every pass's counts in
+    one sweep before the pass loop when the plan fits it), K2/K3 rank (by
+    the pass's engine hint; ``None`` → the one-hot kernel K2), K4
+    reconstruct.  ``block`` is the rank kernels' tile.  Each kernel call
+    starts from zero carry, so ``carry_in`` is refused."""
 
     def __init__(self, block: int = 1024):
         self.block = block
 
     def rank(self, digit, n_bins, *, batch_hint=None, carry_in=None,
-             bin_start=None, engine=None):
+             bin_start=None, engine=None, counts=None):
         if carry_in is not None:
             raise NotImplementedError(
                 "streaming carry is a TorchBackend mode; each rank kernel "
@@ -166,7 +180,19 @@ class CudaBackend(PassBackend):
         from repro_torch.kernels.fractal_rank import fractal_rank_counts
 
         return fractal_rank_counts(digit, n_bins, block=self.block,
-                                   bin_start=bin_start, engine=engine)
+                                   bin_start=bin_start, engine=engine,
+                                   counts=counts)
+
+    def plan_counts(self, u, plan):
+        """One K1 sweep over the key stream when the plan's bins fit it
+        (the 4- and 8-bit plans); wider plans (16b+16b) return None, so
+        each pass launches K1 on its own digit."""
+        from repro_torch.kernels.fractal_histogram import (
+            fractal_histogram_digits, sweep_eligible)
+
+        if not sweep_eligible(plan.passes):
+            return None
+        return fractal_histogram_digits(u, plan.passes)
 
     def histogram(self, digit, n_bins, init=None):
         from repro_torch.kernels.fractal_histogram import fractal_histogram
@@ -215,11 +241,17 @@ class PlanExecutor:
         if any(a.is_cuda for a in arrays):
             torch.cuda.synchronize()
 
-    def _msd_rank(self, u: torch.Tensor, last: DigitPass):
+    def _msd_rank(self, u: torch.Tensor, last: DigitPass,
+                  counts: Optional[torch.Tensor]):
         return self.backend.rank(
             _digit_of(u, last), last.n_bins,
             batch_hint=last.rank_batch(self.backend.rank_base),
-            engine=last.engine)
+            engine=last.engine, counts=counts)
+
+    def _plan_counts(self, u: torch.Tensor, plan: SortPlan) -> tuple:
+        """Each pass's counts from the backend's hook, or Nones."""
+        counts = self.backend.plan_counts(u, plan)
+        return (None,) * len(plan.passes) if counts is None else counts
 
     # -- plain sort ---------------------------------------------------------
 
@@ -235,14 +267,15 @@ class PlanExecutor:
             # empty input, or the p=0 identity plan
             return u if encode is not None else keys
         pass_stats = self._pass_stats(u, plan, with_index=False)
+        pass_counts = self._plan_counts(u, plan)
         for i, dp in enumerate(plan.passes[:-1]):
             with self._pass_span(pass_stats, i, dp):
-                u, = self.backend.lsd_pass_pairs(u, (), dp)
+                u, = self.backend.lsd_pass_pairs(u, (), dp, pass_counts[i])
                 if pass_stats is not None:
                     self._sync(u)
         last = plan.passes[-1]
         with self._pass_span(pass_stats, len(plan.passes) - 1, last):
-            rank, counts, _ = self._msd_rank(u, last)
+            rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
             if last.shift:
                 # compressed entries: only the trailing bits travel; the
                 # prefix is rebuilt from bin positions.
@@ -271,15 +304,16 @@ class PlanExecutor:
         if u.shape[0] == 0 or not plan.passes:
             return (u if encode is not None else keys), values
         pass_stats = self._pass_stats(u, plan, with_index=True)
+        pass_counts = self._plan_counts(u, plan)
         for i, dp in enumerate(plan.passes[:-1]):
             with self._pass_span(pass_stats, i, dp):
                 u, *payloads = self.backend.lsd_pass_pairs(
-                    u, tuple(payloads), dp)
+                    u, tuple(payloads), dp, pass_counts[i])
                 if pass_stats is not None:
                     self._sync(u, *payloads)
         last = plan.passes[-1]
         with self._pass_span(pass_stats, len(plan.passes) - 1, last):
-            rank, counts, _ = self._msd_rank(u, last)
+            rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
             if last.shift:
                 trailing, *payloads = self.backend.scatter(
                     rank, u & ((1 << last.shift) - 1), *payloads)
@@ -303,9 +337,11 @@ class PlanExecutor:
         if n == 0 or not plan.passes:
             return idx  # p=0: all keys equal, stable perm is the identity
         pass_stats = self._pass_stats(u, plan, with_index=True)
+        pass_counts = self._plan_counts(u, plan)
         for i, dp in enumerate(plan.passes):
             with self._pass_span(pass_stats, i, dp):
-                u, idx = self.backend.lsd_pass_pairs(u, (idx,), dp)
+                u, idx = self.backend.lsd_pass_pairs(u, (idx,), dp,
+                                                     pass_counts[i])
                 if pass_stats is not None:
                     self._sync(u, idx)
         return idx

@@ -3,10 +3,15 @@
 Port of ``repro.kernels.fractal_histogram``.  :func:`fractal_histogram`
 bincounts an int32 digit stream over ``[0, n_bins)`` onto carried counts
 (``init``, the streaming accumulation of paper §III.D); values outside the
-range are ignored.  On a CPU tensor it computes the plain version
-(:func:`~repro_torch.kernels.ref.histogram_ref`); on a CUDA tensor it
-launches the kernel or raises.  :func:`digit_histograms` is the
-multi-digit driver, one histogram per plan pass.
+range are ignored.  :func:`fractal_histogram_digits` is K1's second entry:
+every digit of a sort plan counted in one read of the key stream (a
+digit's histogram does not change when the keys are permuted, so a sort
+takes every pass's counts from it before the pass loop).
+:func:`digit_histograms` is the multi-digit driver: one sweep when the
+plan's digits fit in shared memory (:func:`sweep_eligible`), else one
+single-digit launch per digit.  On a CPU tensor each wrapper computes the
+plain version (:mod:`~repro_torch.kernels.ref`); on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,16 +25,30 @@ import torch
 from repro_torch.core.fractal_tree import as_u32_bits
 from repro_torch.kernels import _build, ref
 
-__all__ = ["fractal_histogram", "digit_histograms"]
+__all__ = ["SWEEP_GROUP_BITS", "SWEEP_MAX_BINS", "fractal_histogram",
+           "fractal_histogram_digits", "digit_histograms", "sweep_eligible",
+           "sweep_groups"]
 
 _MAX_BINS = 1 << 16
+
+#: The sweep's limits: the plan's bins summed (its per-digit counts and
+#: the joint histograms each fit in one block's shared memory), the widest
+#: group of adjacent digits counted as one joint digit (one shared atomic
+#: a key for the group), and the kernel's most digits and groups.
+SWEEP_MAX_BINS = 1 << 14
+SWEEP_GROUP_BITS = 12
+SWEEP_MAX_DIGITS = 32
+SWEEP_MAX_GROUPS = 8
 
 
 @functools.cache
 def _lib():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    return _build.library("fractal_histogram",
-                          {"fs_histogram": [vp, ll, vp, i, vp]})
+    ip = ctypes.POINTER(ctypes.c_int)
+    return _build.library("fractal_histogram", {
+        "fs_histogram": [vp, ll, vp, i, vp],
+        "fs_histogram_digits": [vp, ll, vp, i, ip, ip, ip, vp],
+    })
 
 
 def fractal_histogram(keys: torch.Tensor, n_bins: int,
@@ -59,14 +78,98 @@ def fractal_histogram(keys: torch.Tensor, n_bins: int,
 fractal_histogram.launches = 0
 
 
+def sweep_groups(passes) -> Optional[tuple]:
+    """The joint group of each digit in one sweep, or None when the plan
+    does not fit the sweep (its bins summed above :data:`SWEEP_MAX_BINS`,
+    or more digits or groups than the kernel takes).
+
+    Digits are grouped greedily in plan order while a group's bits (its
+    lowest to highest digit bit) span at most :data:`SWEEP_GROUP_BITS`;
+    the groups' joint histograms together stay within
+    :data:`SWEEP_MAX_BINS` counters, else every digit is its own group."""
+    passes = tuple(passes)
+    if (not passes or len(passes) > SWEEP_MAX_DIGITS
+            or sum(dp.n_bins for dp in passes) > SWEEP_MAX_BINS):
+        return None
+    groups, spans = [], []
+    for dp in passes:
+        lo, hi = dp.shift, dp.shift + dp.bits
+        if spans:
+            glo, ghi = spans[-1]
+            if max(ghi, hi) - min(glo, lo) <= SWEEP_GROUP_BITS:
+                spans[-1] = (min(glo, lo), max(ghi, hi))
+                groups.append(len(spans) - 1)
+                continue
+        spans.append((lo, hi))
+        groups.append(len(spans) - 1)
+    if sum(1 << (hi - lo) for lo, hi in spans) > SWEEP_MAX_BINS:
+        groups = list(range(len(passes)))
+    if max(groups) >= SWEEP_MAX_GROUPS:
+        return None
+    return tuple(groups)
+
+
+def sweep_eligible(passes) -> bool:
+    """Whether :func:`digit_histograms` counts ``passes`` in one sweep
+    (else one single-digit launch per digit)."""
+    return sweep_groups(passes) is not None
+
+
+def fractal_histogram_digits(keys: torch.Tensor, passes,
+                             init=None) -> tuple:
+    """Every digit's histogram from one read of the (uint32) key stream:
+    the bincount of each pass's ``bits``-wide digit at ``shift``, each
+    added onto the matching entry of ``init`` (one counts tensor per
+    pass) when given.  Raises unless :func:`sweep_eligible`.  Returns a
+    tuple of ``(2**bits,)`` int32 tensors, plan order (views of one
+    buffer).  A launch counts as one of K1's (``fractal_histogram
+    .launches``) and one of this entry's."""
+    passes = tuple(passes)
+    u = as_u32_bits(keys)
+    if u.device.type == "cpu":
+        return ref.digit_histograms_ref(u, passes, init=init)
+    groups = sweep_groups(passes)
+    if groups is None:
+        raise ValueError(f"{len(passes)} digits of {[dp.bits for dp in passes]} "
+                         f"bits do not fit one sweep; use digit_histograms")
+    _build.check_operand(u, "keys")
+    sizes = [dp.n_bins for dp in passes]
+    out = torch.empty((sum(sizes),), dtype=torch.int32, device=u.device)
+    if init is None:
+        out.zero_()
+    else:
+        for dp, carried in zip(passes, init):
+            _build.check_operand(carried, "init", dp.n_bins)
+        torch.cat(tuple(init), out=out)
+    n = u.shape[0]
+    if n:
+        arr = ctypes.c_int * len(passes)
+        _build.check(_lib().fs_histogram_digits(
+            u.data_ptr(), n, out.data_ptr(), len(passes),
+            arr(*(dp.shift for dp in passes)),
+            arr(*(dp.bits for dp in passes)), arr(*groups),
+            _build.stream(u.device)), "fractal_histogram_digits")
+        fractal_histogram.launches += 1
+        fractal_histogram_digits.launches += 1
+    return tuple(out.split(sizes))
+
+
+fractal_histogram_digits.launches = 0
+
+
 def digit_histograms(keys: torch.Tensor, passes, init=None):
     """One leaf histogram per :class:`~repro_torch.core.sort_plan.DigitPass`:
     the bincount of each pass's ``bits``-wide digit at ``shift`` of the
     (uint32) key stream, each added onto the matching entry of ``init``
-    (one counts tensor per pass) when given.  Returns a tuple of
-    ``(2**bits,)`` int32 tensors, plan order."""
-    u = as_u32_bits(keys)
+    (one counts tensor per pass) when given.  One sweep
+    (:func:`fractal_histogram_digits`) when the plan fits it; wider plans
+    (the 16b+16b plan's 2 x 2**16 bins) take one single-digit K1 launch
+    per digit.  Returns a tuple of ``(2**bits,)`` int32 tensors, plan
+    order."""
     passes = tuple(passes)
+    if sweep_eligible(passes):
+        return fractal_histogram_digits(keys, passes, init=init)
+    u = as_u32_bits(keys)
     if init is None:
         init = (None,) * len(passes)
     return tuple(

@@ -8,13 +8,14 @@ stream ``keys`` in ``[0, n_bins)`` and exclusive bin starts,
 :func:`fractal_rank_kernel` (K2, the reference's one-hot engine) and
 :func:`fractal_rank_scatter_kernel` (K3, the sorted-composite engine) are
 separate kernels with separate launch counters.  The reference carries
-the running per-bin count across a sequential grid.  Here K2 carries it
+the running per-bin count across a sequential grid.  Here both carry it
 up to :data:`LOOKBACK_MAX_BINS` bins by decoupled look-back between
 tiles, in one launch over a zeroed status buffer
-(:func:`lookback_status_bytes`); above that, and always for K3, it is an
-explicit scan over an ``(n_bins, tiles)`` table of per-tile counts (see
-the note in the CUDA source).  The table is refused above
-:data:`TABLE_CAP` entries.
+(:func:`lookback_status_bytes`); above that it is an explicit scan over a
+table of per-tile counts: K2's is bin-major ``(n_bins, tiles)`` with a
+tile of at least ``n_bins`` keys, K3's tile-major ``(tiles, n_bins)``
+with its 8192-key tile (:data:`SCATTER_TILE`; see the note in the CUDA
+source).  A table is refused above :data:`TABLE_CAP` entries.
 
 On a CPU tensor each wrapper computes the plain version
 (:func:`~repro_torch.kernels.ref.rank_ref`); on a CUDA tensor it launches
@@ -37,6 +38,7 @@ __all__ = [
     "DEFAULT_BLOCK",
     "LOOKBACK_MAX_BINS",
     "LOOKBACK_TILE",
+    "SCATTER_TILE",
     "TABLE_CAP",
     "fractal_rank_kernel",
     "fractal_rank_scatter_kernel",
@@ -45,6 +47,7 @@ __all__ = [
     "lookback_status_bytes",
     "lookback_tiles",
     "onehot_tile_len",
+    "scatter_table_entries",
     "uses_lookback",
 ]
 
@@ -53,8 +56,8 @@ _MAX_BINS = 1 << 16
 
 #: Most int32 entries the per-tile count table may hold (1 GiB).  K2's
 #: tile grows with n_bins so its table never exceeds the key count (plus
-#: one tile); K3's tile is its sort block, so wide digits over long
-#: streams pass the cap.
+#: one tile); K3's tile is its 8192-key sort tile, so wide digits over
+#: long streams pass the cap (at 2**16 bins, n <= 2**25 is admitted).
 TABLE_CAP = 1 << 28
 
 #: K2's one-sweep path: keys a tile (256 threads x 32; the kernel's own,
@@ -62,6 +65,12 @@ TABLE_CAP = 1 << 28
 #: look-back thread a bin); wider digits take the table path
 LOOKBACK_TILE = 8192
 LOOKBACK_MAX_BINS = 256
+
+#: K3's tile: keys a CTA sorts (512 threads x 16; the kernel's own,
+#: checked when the library loads).  It is the tile of its look-back
+#: status words (up to LOOKBACK_MAX_BINS bins) and of its count table
+#: (above).
+SCATTER_TILE = 8192
 
 
 @functools.cache
@@ -72,12 +81,17 @@ def _lib():
         "fs_rank_onehot": [vp, ll, vp, vp, i, i, vp],
         "fs_rank_lookback": [vp, ll, vp, vp, i, vp, vp],
         "fs_rank_lookback_tile": [],
-        "fs_rank_scatter": [vp, ll, vp, vp, i, i, vp],
+        "fs_rank_scatter_tile": [],
+        "fs_rank_scatter_lookback": [vp, ll, vp, vp, i, vp, vp],
+        "fs_rank_scatter_counts": [vp, ll, vp, i, vp],
+        "fs_rank_scatter": [vp, ll, vp, vp, i, vp],
     })
-    tile = lib.fs_rank_lookback_tile()
-    if tile != LOOKBACK_TILE:
-        raise RuntimeError(f"the look-back kernel's tile is {tile} keys, "
-                           f"LOOKBACK_TILE is {LOOKBACK_TILE}")
+    for what, tile, want in (
+            ("look-back kernel", lib.fs_rank_lookback_tile(), LOOKBACK_TILE),
+            ("scatter kernel", lib.fs_rank_scatter_tile(), SCATTER_TILE)):
+        if tile != want:
+            raise RuntimeError(f"the {what}'s tile is {tile} keys, the "
+                               f"wrapper's is {want}")
     return lib
 
 
@@ -93,15 +107,31 @@ def uses_lookback(n_bins: int) -> bool:
     return n_bins <= LOOKBACK_MAX_BINS
 
 
-def lookback_tiles(n: int) -> int:
-    """Tiles of the look-back sweep over ``n`` keys."""
-    return -(-n // LOOKBACK_TILE)
+def lookback_tiles(n: int, tile: int = LOOKBACK_TILE) -> int:
+    """Tiles of ``tile`` keys over ``n`` keys (K2's look-back tile by
+    default; K3 passes :data:`SCATTER_TILE`)."""
+    return -(-n // tile)
 
 
-def lookback_status_bytes(n: int, n_bins: int) -> int:
+def lookback_status_bytes(n: int, n_bins: int,
+                          tile: int = LOOKBACK_TILE) -> int:
     """Bytes of the look-back status buffer: one 64-bit word per (tile,
     bin), then the tile counter."""
-    return 8 * (lookback_tiles(n) * n_bins + 1)
+    return 8 * (lookback_tiles(n, tile) * n_bins + 1)
+
+
+def scatter_table_entries(n: int, n_bins: int) -> int:
+    """Entries of K3's ``(tiles, n_bins)`` count table: 0 up to
+    :data:`LOOKBACK_MAX_BINS` bins, where it carries by look-back."""
+    return (0 if uses_lookback(n_bins)
+            else lookback_tiles(n, SCATTER_TILE) * n_bins)
+
+
+def _check_table(tiles: int, n_bins: int) -> None:
+    if tiles * n_bins > TABLE_CAP:
+        raise ValueError(
+            f"rank table of {tiles} tiles x {n_bins} bins passes the cap of "
+            f"{TABLE_CAP} entries; use a narrower digit or the other engine")
 
 
 def _check_args(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int):
@@ -117,10 +147,7 @@ def _tile_starts(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int,
     starting slot per bin = bin_start + counts of all earlier tiles."""
     n = keys.shape[0]
     tiles = -(-n // tile)
-    if tiles * n_bins > TABLE_CAP:
-        raise ValueError(
-            f"rank table of {tiles} tiles x {n_bins} bins passes the cap of "
-            f"{TABLE_CAP} entries; use a narrower digit or the other engine")
+    _check_table(tiles, n_bins)
     # bin-major: flattened, it is in stable counting-sort order, so one
     # 1-D exclusive scan gives every (bin, tile) its dense start
     table = torch.empty((n_bins, tiles), dtype=torch.int32, device=keys.device)
@@ -132,6 +159,26 @@ def _tile_starts(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int,
     starts -= flat
     starts = starts.view(n_bins, tiles)
     starts += (bin_start - starts[:, 0])[:, None]  # dense start -> bin_start
+    return starts
+
+
+def _scatter_tile_starts(keys: torch.Tensor, bin_start: torch.Tensor,
+                         n_bins: int) -> torch.Tensor:
+    """K3's explicit carry scan: per-tile counts (kernel) into a zeroed
+    tile-major table, each CTA writing its own row; then each tile's
+    starting slot per bin = bin_start + that bin's counts in all earlier
+    tiles (an exclusive cumulative sum down the tiles)."""
+    n = keys.shape[0]
+    tiles = lookback_tiles(n, SCATTER_TILE)
+    _check_table(tiles, n_bins)
+    table = torch.zeros((tiles, n_bins), dtype=torch.int32,
+                        device=keys.device)
+    _build.check(_lib().fs_rank_scatter_counts(
+        keys.data_ptr(), n, table.data_ptr(), n_bins,
+        _build.stream(keys.device)), "fs_rank_scatter_counts")
+    starts = torch.cumsum(table, 0, dtype=torch.int32)
+    starts -= table
+    starts += bin_start
     return starts
 
 
@@ -174,9 +221,13 @@ def fractal_rank_scatter_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
                                 n_bins: int,
                                 block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """K3: the same ranks as :func:`fractal_rank_kernel`, from a stable
-    block radix sort of ``digit << log2(block) | position`` composites.
-    ``block`` must be a power of two (at most 1024 on the card) with
-    ``n_bins << log2(block) < 2**32``."""
+    radix sort of ``(digit, position)`` composites in each 8192-key tile
+    (:data:`SCATTER_TILE`).  ``block`` is the reference's sort block: a
+    power of two with ``n_bins << log2(block) < 2**32``, checked as the
+    reference does; the CUDA kernel sorts its own tile whatever it is.  Up
+    to :data:`LOOKBACK_MAX_BINS` bins one launch carries the counts
+    between tiles by look-back; above, a counting launch, a cumulative sum
+    over the table and the rank launch."""
     if block < 1 or block & (block - 1):
         raise ValueError(f"block={block} must be a power of two")
     if n_bins << (block.bit_length() - 1) >= 1 << 32:
@@ -185,16 +236,22 @@ def fractal_rank_scatter_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
     if keys.device.type == "cpu":
         return ref.rank_ref(keys, bin_start, n_bins)
     _check_args(keys, bin_start, n_bins)
-    if not 32 <= block <= 1024:
-        raise ValueError(f"block={block}: the CUDA kernel sorts 32..1024 "
-                         f"keys a block")
     n = keys.shape[0]
     rank = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    if n:
-        starts = _tile_starts(keys, bin_start, n_bins, block)
+    if n and uses_lookback(n_bins):
+        status = torch.zeros(
+            lookback_status_bytes(n, n_bins, SCATTER_TILE) // 8,
+            dtype=torch.int64, device=keys.device)
+        _build.check(_lib().fs_rank_scatter_lookback(
+            keys.data_ptr(), n, bin_start.data_ptr(), rank.data_ptr(),
+            n_bins, status.data_ptr(), _build.stream(keys.device)),
+            "fractal_rank_scatter_kernel")
+        fractal_rank_scatter_kernel.launches += 1
+    elif n:
+        starts = _scatter_tile_starts(keys, bin_start, n_bins)
         _build.check(_lib().fs_rank_scatter(
             keys.data_ptr(), n, starts.data_ptr(), rank.data_ptr(), n_bins,
-            block, _build.stream(keys.device)), "fractal_rank_scatter_kernel")
+            _build.stream(keys.device)), "fractal_rank_scatter_kernel")
         fractal_rank_scatter_kernel.launches += 1
     return rank
 
@@ -205,10 +262,13 @@ fractal_rank_scatter_kernel.launches = 0
 def fractal_rank_counts(digit: torch.Tensor, n_bins: int,
                         block: int = DEFAULT_BLOCK,
                         bin_start: Optional[torch.Tensor] = None,
-                        engine: Optional[str] = None):
-    """Kernel-path rank primitive on an extracted digit stream: histogram
-    kernel → exclusive scan → the ``engine``'s rank kernel (``None`` and
-    "onehot" → K2, "scatter" → K3).
+                        engine: Optional[str] = None,
+                        counts: Optional[torch.Tensor] = None):
+    """Kernel-path rank primitive on an extracted digit stream: the
+    digit's counts → exclusive scan → the ``engine``'s rank kernel
+    (``None`` and "onehot" → K2, "scatter" → K3).  The counts are
+    ``counts`` when given (a sort takes every pass's counts from one K1
+    sweep before its pass loop), else one K1 launch on ``digit``.
 
     Returns ``(rank, counts, carry_out)`` with ``carry_out == counts`` —
     the executor's streaming-carry contract; a call starts from zero
@@ -216,7 +276,8 @@ def fractal_rank_counts(digit: torch.Tensor, n_bins: int,
     already known."""
     if engine not in (None, "onehot", "scatter"):
         raise ValueError(f"unknown kernel rank engine {engine!r}")
-    counts = fractal_histogram(digit, n_bins)
+    if counts is None:
+        counts = fractal_histogram(digit, n_bins)
     if bin_start is None:
         bin_start = exclusive_cumsum(counts)
     kernel = (fractal_rank_scatter_kernel if engine == "scatter"

@@ -18,7 +18,8 @@ from repro_torch.core.sort_plan import make_sort_plan
 from repro_torch.kernels.flash_attention import (
     flash_attention_kernel as _flash)
 from repro_torch.kernels.fractal_histogram import (
-    digit_histograms as _digit_hists, fractal_histogram as _hist)
+    digit_histograms as _digit_hists, fractal_histogram as _hist,
+    fractal_histogram_digits as _hist_digits)
 from repro_torch.kernels.fractal_rank import (
     fractal_rank_digit as _rank_digit, fractal_rank_kernel as _rank,
     fractal_rank_scatter_kernel as _rank_scatter)
@@ -41,14 +42,18 @@ __all__ = [
 #: name -> wrapper, for the launch counters
 KERNELS = {
     "fractal_histogram": _hist,
+    "fractal_histogram_digits": _hist_digits,
     "fractal_rank_kernel": _rank,
     "fractal_rank_scatter_kernel": _rank_scatter,
     "fractal_reconstruct": _recon,
     "flash_attention_kernel": _flash,
 }
-#: the kernels of the sort path (K1-K4); K5 runs on the LM's prefill path
-SORT_KERNELS = ("fractal_histogram", "fractal_rank_kernel",
-                "fractal_rank_scatter_kernel", "fractal_reconstruct")
+#: the kernels of the sort path (K1-K4; "fractal_histogram" counts every
+#: K1 launch, "fractal_histogram_digits" its one-sweep launches too); K5
+#: runs on the LM's prefill path
+SORT_KERNELS = ("fractal_histogram", "fractal_histogram_digits",
+                "fractal_rank_kernel", "fractal_rank_scatter_kernel",
+                "fractal_reconstruct")
 
 
 def launch_counts() -> dict:
@@ -101,8 +106,9 @@ def fractal_sort_kernel(keys, p: int, block: int = 1024,
     """End-to-end kernel-path sort for keys in [0, 2**p), p <= 32: a
     :class:`~repro_torch.core.sort_plan.SortPlan` run by the
     :class:`~repro_torch.core.executor.PlanExecutor` over the
-    :class:`~repro_torch.core.executor.CudaBackend` — per LSD pass the
-    histogram kernel, exclusive scan, rank kernel and full-key scatter;
+    :class:`~repro_torch.core.executor.CudaBackend` — every pass's counts
+    from one histogram sweep, then per LSD pass an exclusive scan, the
+    rank kernel and full-key scatter;
     the MSD pass scatters only the trailing-bit entries and the
     reconstruct kernel rebuilds the prefix bits."""
     keys = to_device(keys, device)

@@ -12,10 +12,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.fractal_tree import wrap_int32
+from repro_torch.core.fractal_tree import as_u32_bits, wrap_int32
 
-__all__ = ["histogram_ref", "rank_ref", "reconstruct_ref",
-           "flash_attention_ref"]
+__all__ = ["histogram_ref", "digit_histograms_ref", "rank_ref",
+           "reconstruct_ref", "flash_attention_ref"]
 
 
 def histogram_ref(keys: torch.Tensor, n_bins: int,
@@ -28,6 +28,19 @@ def histogram_ref(keys: torch.Tensor, n_bins: int,
            if init is None else init.to(torch.int32).clone())
     out.index_add_(0, valid, torch.ones_like(valid, dtype=torch.int32))
     return out
+
+
+def digit_histograms_ref(keys: torch.Tensor, passes, init=None) -> tuple:
+    """One :func:`histogram_ref` per digit pass: the bincount of each
+    pass's ``bits``-wide digit at ``shift`` of the (uint32) key stream,
+    added onto the matching entry of ``init`` when given."""
+    u = as_u32_bits(keys)
+    passes = tuple(passes)
+    if init is None:
+        init = (None,) * len(passes)
+    return tuple(histogram_ref((u >> dp.shift) & (dp.n_bins - 1), dp.n_bins,
+                               init=carried)
+                 for dp, carried in zip(passes, init))
 
 
 def rank_ref(keys: torch.Tensor, bin_start: torch.Tensor,

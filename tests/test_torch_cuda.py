@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.core import (fractal_argsort, fractal_sort,
+from repro_torch.core import (DigitPass, fractal_argsort, fractal_sort,
                               fractal_sort_pairs, make_sort_plan)
 from repro_torch.kernels import fractal_rank as rank_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel
-from repro_torch.kernels.fractal_histogram import fractal_histogram
+from repro_torch.kernels.fractal_histogram import (digit_histograms,
+                                                   fractal_histogram,
+                                                   fractal_histogram_digits,
+                                                   sweep_eligible)
 from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
                                               fractal_rank_scatter_kernel)
 from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
@@ -154,8 +157,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                       device=cuda_device)[::2], 16)
     with pytest.raises(ValueError):  # bin_start of the wrong length
         fractal_rank_kernel(keys, start[:8], 16)
-    with pytest.raises(ValueError):  # the CUDA sort block holds <= 1024 keys
-        fractal_rank_scatter_kernel(keys, start, 16, block=2048)
+    with pytest.raises(ValueError):  # K3 sorts digits of at most 16 bits
+        fractal_rank_scatter_kernel(
+            keys, torch.zeros((1 << 16) + 1, dtype=torch.int32,
+                              device=cuda_device), (1 << 16) + 1)
+    with pytest.raises(ValueError):  # 2 x 2**16 bins do not fit one sweep
+        fractal_histogram_digits(keys, (DigitPass(0, 16), DigitPass(16, 16)))
     with pytest.raises(ValueError):  # a CPU operand next to a CUDA one
         fractal_histogram(keys, 16, init=torch.zeros(16, dtype=torch.int32))
 
@@ -241,3 +248,171 @@ def test_attn_apply_launches_the_kernel(cuda_device):
         cfg, use_pallas_attention=False), x)
     assert flash_attention_kernel.launches == before + 1
     torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
+
+
+# --- K1: the vector-load histogram and the one-sweep digit histograms ----------
+
+
+@pytest.mark.parametrize("n_bins", [1, 2, 15, 16, 17, 32, 33, 256, 1 << 14,
+                                    (1 << 14) + 1, 1 << 16])
+def test_histogram_unaligned_ragged_streams(rng, cuda_device, n_bins):
+    """Register counters (<= 16 bins), shared sub-histograms (<= 2**14) and
+    global atomics, on streams that start 0-3 elements off a 16-byte
+    boundary and end ragged, with -1 and n_bins pads and carried counts."""
+    for n in (1, 31, 4095, 4097, (1 << 20) + 37):
+        for off in (0, 1, 2, 3):
+            base = torch.from_numpy(_digits(rng, n + off, n_bins, "uniform")
+                                    ).to(cuda_device)
+            keys = base[off:]
+            assert keys.data_ptr() % 16 == 4 * off % 16
+            init = torch.from_numpy(rng.integers(0, 1000, n_bins).astype(
+                np.int32)).to(cuda_device)
+            assert torch.equal(fractal_histogram(keys, n_bins),
+                               ref.histogram_ref(keys, n_bins)), (n, off)
+            assert torch.equal(fractal_histogram(keys, n_bins, init=init),
+                               ref.histogram_ref(keys, n_bins, init=init)), (
+                n, off)
+
+
+def test_histogram_skewed_streams(rng, cuda_device):
+    """All keys in one bin, and zipf(1.2): every lane of a warp on one
+    counter."""
+    for n_bins in (16, 256, 1 << 14, 1 << 16):
+        for dist in ("zipf", "one_bin"):
+            keys = torch.from_numpy(_digits(rng, (1 << 20) + 5, n_bins, dist)
+                                    ).to(cuda_device)
+            assert torch.equal(fractal_histogram(keys, n_bins),
+                               ref.histogram_ref(keys, n_bins)), (n_bins, dist)
+
+
+_SWEEP_PLANS = {
+    "p32": lambda n: make_sort_plan(n, 32).passes,
+    "p16": lambda n: make_sort_plan(n, 16).passes,
+    "p7": lambda n: make_sort_plan(n, 7).passes,
+    "8bit": lambda n: make_sort_plan(n, 32, max_bins_log2=8,
+                                     engine="scatter").passes,
+    "p24_6bit": lambda n: make_sort_plan(n, 24, max_bins_log2=6).passes,
+    "14bit": lambda n: (DigitPass(0, 13), DigitPass(13, 12)),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(_SWEEP_PLANS))
+def test_digit_histograms_one_sweep(rng, cuda_device, plan):
+    """One launch counts every digit, against per-digit plain histograms,
+    on aligned and unaligned streams and with carried counts."""
+    for n in (1, 4097, (1 << 20) + 37):
+        passes = _SWEEP_PLANS[plan](n)
+        assert sweep_eligible(passes)
+        raw = rng.integers(0, 1 << 32, n + 3, dtype=np.uint64).astype(np.uint32)
+        for off in (0, 3):
+            keys = torch.from_numpy(raw).to(cuda_device)[off:off + n]
+            init = tuple(torch.from_numpy(rng.integers(
+                0, 100, dp.n_bins).astype(np.int32)).to(cuda_device)
+                for dp in passes)
+            for carried in (None, init):
+                before = (fractal_histogram.launches,
+                          fractal_histogram_digits.launches)
+                got = digit_histograms(keys, passes, init=carried)
+                assert (fractal_histogram.launches,
+                        fractal_histogram_digits.launches) == (
+                    before[0] + 1, before[1] + 1)
+                want = ref.digit_histograms_ref(keys, passes, init=carried)
+                assert len(got) == len(want) == len(passes)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (plan, n, off)
+
+
+def test_digit_histograms_wide_plan_one_launch_per_digit(rng, cuda_device):
+    """The 16b+16b plan (2 x 2**16 bins) does not fit the sweep: one
+    single-digit launch per digit."""
+    n = 100_003
+    passes = make_sort_plan(n, 32, max_bins_log2=16).passes
+    assert not sweep_eligible(passes)
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                            .astype(np.uint32)).to(cuda_device)
+    before = (fractal_histogram.launches, fractal_histogram_digits.launches)
+    got = digit_histograms(keys, passes)
+    assert (fractal_histogram.launches, fractal_histogram_digits.launches) == (
+        before[0] + len(passes), before[1])
+    for g, w in zip(got, ref.digit_histograms_ref(keys, passes)):
+        assert torch.equal(g, w)
+
+
+def test_warm_sort_launches_k1_once(rng, cuda_device):
+    """A p = 32 sort takes all 8 passes' counts from one K1 sweep."""
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, 300_001, dtype=np.uint64)
+                            .astype(np.uint32)).to(cuda_device)
+    fractal_sort(keys, 32)  # warm
+    ops.reset_launch_counts()
+    out = fractal_sort(keys, 32)
+    counts = ops.launch_counts()
+    assert counts["fractal_histogram"] == 1, counts
+    assert counts["fractal_histogram_digits"] == 1, counts
+    assert counts["fractal_rank_kernel"] == len(make_sort_plan(
+        keys.shape[0], 32).passes), counts
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  np.sort(keys.cpu().numpy()))
+
+
+# --- K3: the redesigned sorted-composite rank ---------------------------------------
+
+
+@pytest.mark.parametrize("n_bins", [1, 2, 16, 256, 257, 4096, 1 << 16])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_rank_scatter_matches_plain_version(rng, cuda_device, n_bins, dist):
+    """Across K3's 8192-key tile edges, on skewed keys and with pads; up
+    to 256 bins the look-back launch, above it the table path."""
+    for n in (1, 1000, 4095, 8191, 8192, 8193, 3 * 8192 + 5, 100_003):
+        keys = torch.from_numpy(_digits(rng, n, n_bins, dist)).to(cuda_device)
+        start = torch.from_numpy(
+            rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(cuda_device)
+        assert torch.equal(fractal_rank_scatter_kernel(keys, start, n_bins),
+                           ref.rank_ref(keys, start, n_bins)), n
+
+
+@pytest.mark.parametrize("n_bins", [16, 256, 257])
+def test_rank_scatter_unaligned_keys(rng, cuda_device, n_bins):
+    base = torch.from_numpy(_digits(rng, 50_001, n_bins, "uniform")
+                            ).to(cuda_device)
+    keys = base[1:]
+    start = torch.zeros(n_bins, dtype=torch.int32, device=cuda_device)
+    assert keys.data_ptr() % 16 != 0
+    assert torch.equal(fractal_rank_scatter_kernel(keys, start, n_bins),
+                       ref.rank_ref(keys, start, n_bins))
+
+
+def test_rank_scatter_wide_digits_long_stream(rng, cuda_device):
+    """2**16 bins at n = 2**22, the widest table the reference's block
+    admitted."""
+    n, n_bins = 1 << 22, 1 << 16
+    keys = torch.from_numpy(_digits(rng, n, n_bins, "uniform")).to(cuda_device)
+    start = torch.from_numpy(rng.integers(0, 1 << 20, n_bins).astype(np.int32)
+                             ).to(cuda_device)
+    assert torch.equal(fractal_rank_scatter_kernel(keys, start, n_bins),
+                       ref.rank_ref(keys, start, n_bins))
+
+
+@pytest.mark.parametrize("n_bins,table", [(16, False), (256, False),
+                                          (257, True), (1 << 16, True)])
+def test_rank_scatter_table_only_above_256_bins(rng, cuda_device, monkeypatch,
+                                                n_bins, table):
+    """Up to 256 bins K3 is the one look-back launch: no table."""
+    lib = rank_mod._lib()
+    called = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            called.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(rank_mod, "_lib", Recorder)
+    keys = torch.from_numpy(rng.integers(0, n_bins, 50_000).astype(np.int32)
+                            ).to(cuda_device)
+    start = torch.zeros(n_bins, dtype=torch.int32, device=cuda_device)
+    before = fractal_rank_scatter_kernel.launches
+    got = fractal_rank_scatter_kernel(keys, start, n_bins)
+    assert fractal_rank_scatter_kernel.launches == before + 1
+    assert torch.equal(got, ref.rank_ref(keys, start, n_bins))
+    want = (["fs_rank_scatter_counts", "fs_rank_scatter"] if table
+            else ["fs_rank_scatter_lookback"])
+    assert called == want
