@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) of FractalSort on one
-NVIDIA GPU and check it: the in-memory sort, and the llama3.2-1b serving
+NVIDIA GPU and check it: the in-memory sort, the llama3.2-1b serving
 path (prefill through the flash-attention kernel, then the decode loop
-with the fractal-sort scheduler).
+with the fractal-sort scheduler), and the query layer on TPC-H-shaped
+tables.
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
+                          [--query-log2n 26] [--profile]
 
 Phases, each fatal on failure:
 
@@ -71,13 +73,37 @@ then, with the sort data freed and TF32 off for float32 matmuls:
    plain version and ``scaled_dot_product_attention`` (timed as the
    yardstick only; the port never calls it), with the first version's
    time and fp32-FMA bound on the log line only; prefill ms and serve
-   tokens/s.
+   tokens/s;
+
+then, with the model freed:
+
+11. TPC-H-shaped ``orders`` (2**(query_log2n - 2) rows) and ``lineitem``
+   (1-7 lines an order, about 2**query_log2n rows; default 2**26) built
+   on the card, and six queries through ``repro_torch.query``: a
+   Q1-shaped GROUP BY (return flag, line status) with sum, count, min
+   and max; a Q3-shaped join of orders and lineitem, revenue column,
+   GROUP BY order key and top-10 by (revenue desc, order date); ORDER BY
+   (extended price desc, order key), a 3-word code; ORDER BY ship date at
+   16-bit precision; DISTINCT ship date; and one ``sort_rowids_batched``
+   of 64-bit codes in 2**20-row segments.  Each result is held against a
+   plain-torch oracle computed here (stable ``torch.argsort`` of int64
+   keys derived here, ``torch.unique`` with scatter reductions,
+   ``torch.searchsorted`` match ranges): bit-exact for row ids, codes,
+   counts, integer sums, min and max, float64 sums within
+   ``QUERY_F64_RTOL``; each query's host syncs are counted (CUDA's sync
+   debug mode), and the path fails unless K1 and K2 launched on it;
+12. each query's time (CUDA events and host wall, median of 3 after one
+   warm-up, the host's syncs included) beside the same query written in
+   plain torch ops (the phase-11 oracle, a yardstick the port never
+   calls); ``--profile`` adds the device time of one call of each query
+   by kernel, and its idle share.
 
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
-Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9).
+Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
+11).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import gc
 import json
 import os
@@ -95,6 +122,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -115,6 +143,9 @@ FIRST_VERSION_MS = {"fractal_histogram": 0.674, "fractal_rank_kernel": 1.122,
                     "fractal_rank_scatter_kernel": 4.778, "k5_float32": 1.565,
                     "k5_bfloat16": 1.580}
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048  # prompts and tokens a prompt
+# float64 sums of the query phases against the oracle's: they add in
+# another order, and this tolerance absorbs only that
+QUERY_F64_RTOL = 1e-9
 
 
 def log(msg: str) -> None:
@@ -466,6 +497,394 @@ def lm_phases(args, dev, card: str, path_counts: dict) -> tuple:
     return table, e2e
 
 
+def tpch_days(year: int, month: int, day: int) -> int:
+    return (datetime.date(year, month, day) - datetime.date(1970, 1, 1)).days
+
+
+def tpch_tables(seed: int, log2_lines: int, dev) -> tuple:
+    """``orders`` (2**(log2_lines - 2) rows) and ``lineitem`` (1-7 lines
+    an order, about 2**log2_lines rows) in the column shapes of TPC-H's
+    dbgen (spec 4.2.3), drawn on the card from ``(seed, 11)``: sparse
+    order keys (the first 8 of every 32), order dates uniform over
+    1992-01-01..1998-08-02, ship dates 1-121 days after, receipt 1-30
+    days after that, return flag R or A if received by 1995-06-17 else N,
+    line status O if shipped after it else F, quantity 1-50, extended
+    price quantity x a retail price of 900.00-2099.00, discount
+    0.00-0.10, total price the order's lines' extended prices.  Both
+    tables' rows are shuffled, so no sort sees presorted input.  Days
+    count from 1970-01-01 as int32."""
+    from repro_torch.query import Table
+
+    gen = torch.Generator(device=dev).manual_seed(
+        int(phase_rng(seed, 11).integers(1 << 62)))
+
+    def randint(lo, hi, n):  # [lo, hi]
+        return torch.randint(lo, hi + 1, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    n_orders = 1 << (log2_lines - 2)
+    i = torch.arange(n_orders, device=dev, dtype=torch.int32)
+    okey = ((i >> 3) << 5) + (i & 7) + 1
+    odate = randint(tpch_days(1992, 1, 1), tpch_days(1998, 8, 2), n_orders)
+    lines = randint(1, 7, n_orders)
+    n_lines = int(lines.sum())
+    order = torch.repeat_interleave(
+        torch.arange(n_orders, device=dev), lines.long(), output_size=n_lines)
+    first = torch.cumsum(lines, 0, dtype=torch.int32) - lines
+    linenumber = (torch.arange(n_lines, device=dev, dtype=torch.int32)
+                  - first[order] + 1)
+    qty = randint(1, 50, n_lines)
+    price = qty.double() * randint(90000, 209900, n_lines).double() / 100.0
+    discount = randint(0, 10, n_lines).float() / 100.0
+    ship = odate[order] + randint(1, 121, n_lines)
+    receipt = ship + randint(1, 30, n_lines)
+    today = tpch_days(1995, 6, 17)
+    coin = randint(0, 1, n_lines).bool()
+    flag = torch.where(receipt <= today,
+                       torch.where(coin, ord("R"), ord("A")), ord("N"))
+    status = torch.where(ship > today, ord("O"), ord("F"))
+    total = torch.zeros(n_orders, dtype=torch.float64, device=dev)
+    total.index_add_(0, order, price)
+    operm = torch.randperm(n_orders, generator=gen, device=dev)
+    lperm = torch.randperm(n_lines, generator=gen, device=dev)
+    orders = Table({"o_orderkey": okey[operm], "o_orderdate": odate[operm],
+                    "o_totalprice": total[operm]}, device=dev)
+    lineitem = Table({
+        "l_orderkey": okey[order][lperm], "l_linenumber": linenumber[lperm],
+        "l_quantity": qty[lperm], "l_extendedprice": price[lperm],
+        "l_discount": discount[lperm], "l_shipdate": ship[lperm],
+        "l_returnflag": flag[lperm].to(torch.uint8),
+        "l_linestatus": status[lperm].to(torch.uint8)}, device=dev)
+    return orders, lineitem
+
+
+def f64_order_key(x: torch.Tensor) -> torch.Tensor:
+    """float64 values as int64 in IEEE total order (the sign-magnitude
+    transform, derived here independently of the port's codec)."""
+    v = x.view(torch.int64)
+    return v ^ ((v >> 63) & 0x7FFFFFFFFFFFFFFF)
+
+
+def stable_lex_perm(*keys: torch.Tensor) -> torch.Tensor:
+    """Stable permutation sorting by ``keys`` (first key most significant):
+    one stable ``torch.argsort`` a key, least significant first."""
+    perm = torch.argsort(keys[-1], stable=True)
+    for key in reversed(keys[:-1]):
+        perm = perm[torch.argsort(key[perm], stable=True)]
+    return perm
+
+
+def plain_join(left_key: torch.Tensor, right_key: torch.Tensor) -> tuple:
+    """Inner-join row pairs in (key, left arrival, right arrival) order:
+    stable argsorts of both sides, per-key match ranges by
+    ``torch.searchsorted``."""
+    lperm = torch.argsort(left_key.long(), stable=True)
+    rperm = torch.argsort(right_key.long(), stable=True)
+    lk, rk = left_key.long()[lperm], right_key.long()[rperm]
+    lo = torch.searchsorted(rk, lk)
+    cnt = torch.searchsorted(rk, lk, right=True) - lo
+    total = int(cnt.sum())
+    lpos = torch.repeat_interleave(cnt, output_size=total)
+    rpos = (torch.arange(total, device=lk.device)
+            + (lo - (torch.cumsum(cnt, 0) - cnt))[lpos])
+    return lperm[lpos], rperm[rpos]
+
+
+def plain_groups(key: torch.Tensor) -> tuple:
+    """(sorted distinct keys, each row's group) by ``torch.unique``."""
+    return torch.unique(key, sorted=True, return_inverse=True)
+
+
+def segment_sum(inv: torch.Tensor, vals: torch.Tensor, groups: int):
+    return torch.zeros(groups, dtype=vals.dtype,
+                       device=vals.device).index_add_(0, inv, vals)
+
+
+def segment_extreme(inv: torch.Tensor, vals: torch.Tensor, groups: int,
+                    how: str):
+    return torch.empty(groups, dtype=vals.dtype, device=vals.device
+                       ).scatter_reduce_(0, inv, vals, how, include_self=False)
+
+
+def count_syncs(fn):
+    """``fn()`` under CUDA's sync debug mode: returns (its result, the
+    synchronizing calls it made: the host's waits for scalars)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def query_ms(fn, iters: int = 3) -> tuple:
+    """(CUDA-event ms, host wall ms) of one call of ``fn``, medians of
+    ``iters`` after one warm-up; the call's own host syncs count."""
+    fn()
+    torch.cuda.synchronize()
+    ev, wall = [], []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ev.append(start.elapsed_time(end))
+    return statistics.median(ev), statistics.median(wall)
+
+
+def query_phases(args, dev, card: str, path_counts: dict) -> list:
+    """Phases 11-12: TPC-H-shaped ``orders`` and ``lineitem`` on the card,
+    six queries through ``repro_torch.query`` held against plain-torch
+    oracles, the query path's kernel launches, and each query's time
+    beside its plain-torch yardstick.  Adds ``path_counts["query"]``;
+    returns the e2e rows."""
+    from repro_torch import query as Q
+    from repro_torch.core import make_sort_plan
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fractal_histogram import fractal_histogram
+    from repro_torch.kernels.fractal_rank import fractal_rank_kernel
+
+    # -- 11. tables, queries, oracles --------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    orders, lineitem = tpch_tables(args.seed, args.query_log2n, dev)
+    torch.cuda.synchronize()
+    n_lines = lineitem.num_rows
+    col_bytes = sum(c.numel() * c.element_size()
+                    for t in (orders, lineitem)
+                    for c in (t.column(n) for n in t.column_names))
+    log(f"[query] orders {orders.num_rows} rows, lineitem {n_lines} rows "
+        f"({col_bytes / 2**30:.2f} GiB of columns on the card) from seed "
+        f"{args.seed} in {time.perf_counter() - t0:.1f} s")
+    L = lineitem.column
+    o3 = Q.Table({"orderkey": orders.column("o_orderkey"),
+                  "o_orderdate": orders.column("o_orderdate")}, device=dev)
+    l3 = Q.Table({"orderkey": L("l_orderkey"),
+                  "l_extendedprice": L("l_extendedprice"),
+                  "l_discount": L("l_discount")}, device=dev)
+    seg_log2 = 20
+    m = (n_lines >> seg_log2) << seg_log2
+    batch_words = Q.Float64Codec().encode(L("l_extendedprice")[:m])
+    q1_aggs = {"sum_qty": ("l_quantity", "sum"),
+               "sum_base_price": ("l_extendedprice", "sum"),
+               "count_order": (None, "count"),
+               "min_shipdate": ("l_shipdate", "min"),
+               "max_shipdate": ("l_shipdate", "max")}
+
+    def q3():
+        j = Q.sort_merge_join(o3, l3, "orderkey")
+        j = j.with_columns({"revenue": j.column("l_extendedprice")
+                            * (1 - j.column("l_discount").double())})
+        g = Q.group_by(j, "orderkey", {"revenue": ("revenue", "sum"),
+                                       "o_orderdate": ("o_orderdate", "min")})
+        return j, g, Q.top_k(g, [("revenue", "desc"), ("o_orderdate", "asc")],
+                             10)
+
+    # the port's queries, and each one's plain-torch yardstick (the
+    # oracle's own computation, never called by the port)
+    def q1_plain():
+        uniq, inv = plain_groups((L("l_returnflag").long() << 8)
+                                 | L("l_linestatus").long())
+        g = uniq.numel()
+        ship = L("l_shipdate")
+        return {"l_returnflag": (uniq >> 8).to(torch.uint8),
+                "l_linestatus": (uniq & 255).to(torch.uint8),
+                "sum_qty": segment_sum(inv, L("l_quantity").long(), g),
+                "sum_base_price": segment_sum(inv, L("l_extendedprice"), g),
+                "count_order": torch.bincount(inv, minlength=g),
+                "min_shipdate": segment_extreme(inv, ship, g, "amin"),
+                "max_shipdate": segment_extreme(inv, ship, g, "amax")}
+
+    def q3_plain():
+        lrows, rrows = plain_join(o3.column("orderkey"), l3.column("orderkey"))
+        revenue = (l3.column("l_extendedprice")[rrows]
+                   * (1 - l3.column("l_discount")[rrows].double()))
+        uniq, inv = plain_groups(o3.column("orderkey")[lrows])
+        g = uniq.numel()
+        rev = segment_sum(inv, revenue, g)
+        odate = segment_extreme(inv, o3.column("o_orderdate")[lrows], g,
+                                "amin")
+        top = stable_lex_perm(~f64_order_key(rev), odate.long())[:10]
+        return lrows, rrows, uniq, rev, odate, top
+
+    def gather_all(perm):
+        return {n: L(n)[perm] for n in lineitem.column_names}
+
+    def orderby3_plain():
+        return gather_all(stable_lex_perm(~f64_order_key(L("l_extendedprice")),
+                                          L("l_orderkey").long()))
+
+    def orderby16_plain():
+        return gather_all(torch.argsort(L("l_shipdate"), stable=True))
+
+    def distinct_plain():
+        uniq, inv = plain_groups(L("l_shipdate"))
+        rows = torch.arange(n_lines, device=dev)
+        return gather_all(segment_extreme(inv, rows, uniq.numel(), "amin"))
+
+    def batched_plain():
+        seg = torch.arange(m, device=dev) >> seg_log2
+        perm = stable_lex_perm(seg, f64_order_key(L("l_extendedprice")[:m]))
+        return batch_words[perm], perm
+
+    queries = {
+        "q1": (lambda: Q.group_by(lineitem, ["l_returnflag", "l_linestatus"],
+                                  q1_aggs), q1_plain),
+        "q3": (q3, q3_plain),
+        "order_by_3word": (lambda: Q.order_by(
+            lineitem, [("l_extendedprice", "desc"), "l_orderkey"]),
+            orderby3_plain),
+        "order_by_shipdate_16bit": (lambda: Q.order_by(
+            lineitem, "l_shipdate", codecs={"l_shipdate": Q.IntCodec(16)}),
+            orderby16_plain),
+        "distinct_shipdate": (lambda: Q.distinct(lineitem, ["l_shipdate"]),
+                              distinct_plain),
+        "sort_rowids_batched": (lambda: Q.operators.sort_rowids_batched(
+            batch_words, 64, seg_log2), batched_plain),
+    }
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want.to(got.dtype)):
+            raise AssertionError(f"{what}: differs from the plain-torch oracle")
+
+    def close(what, got, want, rtol):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: shape or non-finite values")
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+        if rel > rtol:
+            raise AssertionError(f"{what}: relative error {rel:.3e} > {rtol}")
+        return rel
+
+    def same_table(what, got, want: dict):
+        if list(got.column_names) != list(want):
+            raise AssertionError(f"{what}: columns {got.column_names}")
+        for name, col in want.items():
+            same(f"{what} {name}", got.column(name), col)
+
+    checks, syncs, rel_errs = {}, {}, {}
+    counts = {k: 0 for k in ops.KERNELS}
+    for name, (port, plain) in queries.items():
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        got, syncs[name] = count_syncs(port)
+        launched = ops.launch_counts()
+        for k, c in launched.items():
+            counts[k] += c
+        want = plain()
+        if name == "q1":
+            same_table(name, got.select(["l_returnflag", "l_linestatus",
+                                         "count_order", "min_shipdate",
+                                         "max_shipdate"]),
+                       {k: want[k] for k in ("l_returnflag", "l_linestatus",
+                                             "count_order", "min_shipdate",
+                                             "max_shipdate")})
+            same("q1 sum_qty", got.column("sum_qty"), want["sum_qty"])
+            rel_errs[name] = close("q1 sum_base_price",
+                                   got.column("sum_base_price"),
+                                   want["sum_base_price"], QUERY_F64_RTOL)
+            checks[name] = f"{got.num_rows} groups"
+        elif name == "q3":
+            j, g, top = got
+            lrows, rrows, uniq, rev, odate, _ = want
+            for col in ("orderkey", "o_orderdate"):
+                same(f"q3 join {col}", j.column(col), o3.column(col)[lrows])
+            for col in ("l_extendedprice", "l_discount"):
+                same(f"q3 join {col}", j.column(col), l3.column(col)[rrows])
+            same("q3 group keys", g.column("orderkey"), uniq)
+            same("q3 group o_orderdate", g.column("o_orderdate"), odate)
+            rel_errs[name] = close("q3 group revenue", g.column("revenue"),
+                                   rev, QUERY_F64_RTOL)
+            # top-k of the port's own groups (sums equal only to rtol)
+            perm = stable_lex_perm(~f64_order_key(g.column("revenue")),
+                                   g.column("o_orderdate").long())[:10]
+            same_table("q3 top_k", top, {c: g.column(c)[perm]
+                                         for c in g.column_names})
+            checks[name] = (f"join {j.num_rows} rows, {g.num_rows} groups, "
+                            f"top revenue {float(top.column('revenue')[0]):.2f}")
+            q3_groups = g
+        elif name == "sort_rowids_batched":
+            same("batched words", got[0], want[0])
+            same("batched row ids", got[1].long(), want[1])
+            checks[name] = f"{m} rows in {m >> seg_log2} segments"
+        else:
+            same_table(name, got, want)
+            checks[name] = f"{got.num_rows} rows"
+        del got, want
+        log(f"[query] {name}: bit-exact against its oracle"
+            + (f" (float64 sums within {QUERY_F64_RTOL}: max rel err "
+               f"{rel_errs[name]:.2e})" if name in rel_errs else "")
+            + f"; {checks[name]}; {syncs[name]} host syncs; launches "
+            f"{json.dumps({k: c for k, c in launched.items() if c})} "
+            f"({time.perf_counter() - t1:.1f} s with the check)")
+    path_counts["query"] = counts
+    for name in ("fractal_histogram", "fractal_rank_kernel"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the query path launched no {name}")
+    log(f"[launches] query path: {json.dumps(counts)} (K3 "
+        f"{counts['fractal_rank_scatter_kernel']}, K4 "
+        f"{counts['fractal_reconstruct']}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+
+    # K1 and K2 at the query path's own shapes, against their plain
+    # versions on the same inputs (these launches count on no path):
+    # top-k's prune histogram over Q3's groups, and the first pass of the
+    # batched sort's least significant word (its (segment, digit) table
+    # and its rank from zero bin starts)
+    def agree(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want.to(got.dtype)):
+            raise AssertionError(f"{what}: differs from its plain version")
+        log(f"[check] {what}: bit-exact with its plain version")
+
+    by = [("revenue", "desc"), ("o_orderdate", "asc")]
+    codec, prepped = Q.operators._key_data(q3_groups, by, None)
+    width0 = Q.word_widths(codec.bits)[0]
+    top_bits = min(Q.operators._TOPK_PRUNE_BITS, width0)
+    w0 = codec.encode_fn(prepped)[:, 0]
+    prefix = ((w0 >> (width0 - top_bits)) & ((1 << top_bits) - 1)).contiguous()
+    agree(f"K1 top-k prune, {prefix.numel()} rows x {1 << top_bits} bins",
+          fractal_histogram(prefix, 1 << top_bits),
+          ref.histogram_ref(prefix, 1 << top_bits))
+    del q3_groups, prepped, w0, prefix
+    j, eff = Q.operators.active_words(64)[-1]
+    dp = make_sort_plan(1 << seg_log2, eff).passes[0]
+    digit = ((batch_words[:, j] >> dp.shift) & (dp.n_bins - 1)).contiguous()
+    cells = (m >> seg_log2) * dp.n_bins
+    cell = (torch.arange(m, dtype=torch.int32, device=dev) >> seg_log2
+            ) * dp.n_bins + digit
+    agree(f"K1 segment table, {m} rows x {cells} cells",
+          fractal_histogram(cell, cells), ref.histogram_ref(cell, cells))
+    zero = torch.zeros((dp.n_bins,), dtype=torch.int32, device=dev)
+    agree(f"K2 zero bin starts, {m} rows x {dp.n_bins} bins",
+          fractal_rank_kernel(digit, zero, dp.n_bins),
+          ref.rank_ref(digit, zero, dp.n_bins))
+    del digit, cell
+
+    # -- 12. times ------------------------------------------------------------------
+    e2e = []
+    for name, (port, plain) in queries.items():
+        ms, wall = query_ms(port)
+        plain_ms, plain_wall = query_ms(plain)
+        e2e.append({"name": f"query {name}", "lineitem_rows": n_lines,
+                    "ms": ms, "wall_ms": wall, "yardstick_ms": plain_ms,
+                    "yardstick_wall_ms": plain_wall,
+                    "host_syncs": syncs[name]})
+        log(f"[e2e] {e2e[-1]}")
+    if args.profile:
+        log(json.dumps({"profile_query": {
+            name: profile_call(port, top=12)
+            for name, (port, _) in queries.items()}, "card": card}))
+    return e2e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -473,12 +892,15 @@ def main() -> int:
                     help="main-path key count 2**log2n (default 27)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one p=32 sort, one call of K1, its "
-                         "sweep and K3, one prefill and one serve with "
-                         "torch.profiler and print device time by kernel "
-                         "and op")
+                         "sweep and K3, one prefill, one serve and each "
+                         "query with torch.profiler and print device time "
+                         "by kernel and op")
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut llama3.2-1b to this many layers (default: "
                          "all 16)")
+    ap.add_argument("--query-log2n", type=int, default=26,
+                    help="about 2**N lineitem rows (2**(N-2) orders) in the "
+                         "query phases (default 26; 20 for a rehearsal)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -938,8 +1360,11 @@ def main() -> int:
     lm_table, lm_e2e = lm_phases(args, dev, card, path_counts)
     table += lm_table
     e2e += lm_e2e
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e += query_phases(args, dev, card, path_counts)
 
-    # every kernel launched on a main path (sort, prefill, serve)
+    # every kernel launched on a main path (sort, prefill, serve, query)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "

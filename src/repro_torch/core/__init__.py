@@ -43,6 +43,7 @@ from repro_torch.core.fractal_sort import (
     fractal_rank_scatter,
     fractal_rank_serial,
     fractal_sort,
+    fractal_sort_batched,
     fractal_sort_pairs,
     fractal_sort_stats,
     keys_dtype,

@@ -29,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.fractal_tree import as_u32_bits
+from repro_torch.core.fractal_tree import (as_u32_bits, exclusive_cumsum,
+                                          u32_to_int64)
 from repro_torch.core.sort_plan import DigitPass, SortPlan
 from repro_torch.obs import trace
 
@@ -44,6 +45,10 @@ __all__ = [
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
 
+# Cells of a segment table one histogram call counts: K1's widest
+# histogram, so a wider table takes one K1 launch per slice.
+_TABLE_SLICE = 1 << 16
+
 
 def _digit_of(u: torch.Tensor, dp: DigitPass) -> torch.Tensor:
     """The ``dp.bits``-wide digit of each key (int32 storage of uint32
@@ -56,6 +61,18 @@ def _as_key_stream(keys: torch.Tensor, encode) -> torch.Tensor:
     order-preserving transform ``encode(keys)`` of a raw input column, as
     int32 storage of uint32 bits."""
     return as_u32_bits(keys if encode is None else encode(keys))
+
+
+def _like_keys(out: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Sorted key bits in the input's dtype (the reference's
+    ``.astype(keys.dtype)``)."""
+    if out.dtype == keys.dtype:
+        return out
+    if keys.dtype == torch.uint32:
+        return as_u32_bits(out).view(torch.uint32)
+    if keys.dtype == torch.int64:
+        return u32_to_int64(out)
+    return as_u32_bits(out).to(keys.dtype)
 
 
 class PassBackend:
@@ -165,23 +182,27 @@ class CudaBackend(PassBackend):
     """Hand-written kernel primitives: K1 histogram (every pass's counts in
     one sweep before the pass loop when the plan fits it), K2/K3 rank (by
     the pass's engine hint; ``None`` → the one-hot kernel K2), K4
-    reconstruct.  ``block`` is the rank kernels' tile.  Each kernel call
-    starts from zero carry, so ``carry_in`` is refused."""
+    reconstruct.  ``block`` is the rank kernels' tile.  A streaming
+    ``carry_in`` is folded into the bin starts the rank kernel takes
+    (rank = bin start + carry + arrival)."""
 
     def __init__(self, block: int = 1024):
         self.block = block
 
     def rank(self, digit, n_bins, *, batch_hint=None, carry_in=None,
              bin_start=None, engine=None, counts=None):
-        if carry_in is not None:
-            raise NotImplementedError(
-                "streaming carry is a TorchBackend mode; each rank kernel "
-                "call starts from zero carry")
         from repro_torch.kernels.fractal_rank import fractal_rank_counts
 
-        return fractal_rank_counts(digit, n_bins, block=self.block,
-                                   bin_start=bin_start, engine=engine,
-                                   counts=counts)
+        if carry_in is not None:
+            if bin_start is None:
+                if counts is None:
+                    counts = self.histogram(digit, n_bins)
+                bin_start = exclusive_cumsum(counts)
+            bin_start = bin_start + carry_in
+        rank, counts, carry = fractal_rank_counts(
+            digit, n_bins, block=self.block, bin_start=bin_start,
+            engine=engine, counts=counts)
+        return rank, counts, carry if carry_in is None else carry_in + counts
 
     def plan_counts(self, u, plan):
         """One K1 sweep over the key stream when the plan's bins fit it
@@ -345,6 +366,132 @@ class PlanExecutor:
                 if pass_stats is not None:
                     self._sync(u, idx)
         return idx
+
+    # -- segment-aware re-ranking (grouped-trailing and batched modes) --------
+
+    def _segment_rank(self, u: torch.Tensor, dp: DigitPass, seg: torch.Tensor,
+                      seg_start: torch.Tensor, nseg: int) -> torch.Tensor:
+        """Stable rank of ``dp``'s digit *within* each segment (``seg``:
+        each slot's segment, ``seg_start``: each slot's segment start).
+        The backend ranks with zero bin starts, so its rank is the arrival
+        among equal digits in array (= segment-major) order; a
+        ``(segments, n_bins)`` digit table converts it to the slot inside
+        the segment.  The table is the backend's histogram of the
+        (segment, digit) cells, taken :data:`_TABLE_SLICE` cells at a time
+        (the histogram drops cells outside the slice); its column sums are
+        the digit's counts the rank takes."""
+        digit = _digit_of(u, dp)
+        cells = nseg * dp.n_bins
+        cell = seg * dp.n_bins + digit
+        table = torch.cat([
+            self.backend.histogram(cell - base if base else cell,
+                                   min(_TABLE_SLICE, cells - base))
+            for base in range(0, cells, _TABLE_SLICE)]).view(nseg, dp.n_bins)
+        arr_g, _, _ = self.backend.rank(
+            digit, dp.n_bins, batch_hint=dp.rank_batch(self.backend.rank_base),
+            bin_start=torch.zeros((dp.n_bins,), dtype=torch.int32,
+                                  device=u.device),
+            engine=dp.engine, counts=table.sum(0, dtype=torch.int32))
+        before_seg = torch.cumsum(table, 0, dtype=torch.int32) - table
+        lower = torch.cumsum(table, 1, dtype=torch.int32) - table
+        return (seg_start + lower.view(-1)[cell] + arr_g
+                - before_seg.view(-1)[cell])
+
+    def run_segmented_argsort(self, keys: torch.Tensor, plan: SortPlan,
+                              seg_len_log2: int,
+                              encode=None) -> torch.Tensor:
+        """Stable int32 argsort *within* equal-length power-of-two segments.
+
+        ``keys`` is ``B`` independent arrays of length ``2**seg_len_log2``
+        laid end to end; the returned permutation sorts each segment in
+        place (``perm[b*L:(b+1)*L]`` stays inside ``[b*L, (b+1)*L)``).
+        Segment membership is positional (``slot >> seg_len_log2``), so
+        ranks never cross segments."""
+        u = _as_key_stream(keys, encode)
+        n = u.shape[0]
+        idx = torch.arange(n, dtype=torch.int32, device=u.device)
+        if n == 0 or not plan.passes:
+            return idx  # empty batch, or p=0: identity within each segment
+        seg = idx >> seg_len_log2
+        seg_start = seg << seg_len_log2
+        for dp in plan.passes:
+            rank = self._segment_rank(u, dp, seg, seg_start, n >> seg_len_log2)
+            u, idx = self.backend.scatter(rank, u, idx)
+        return idx
+
+    def run_grouped_trailing(self, entries: torch.Tensor,
+                             counts: torch.Tensor,
+                             plan: SortPlan) -> torch.Tensor:
+        """Finish a sort whose array is already grouped by the MSD prefix.
+
+        ``entries`` holds, per slot, the ``plan.trailing_bits`` trailing
+        bits of a key whose prefix is implied by its segment (the slot's
+        bin, from ``counts``); each trailing LSD pass re-ranks *within*
+        segments, so the MSD pass never re-runs.  Returns the
+        reconstructed sorted keys."""
+        n = entries.shape[0]
+        last = plan.passes[-1]
+        if n == 0 or last.shift == 0:
+            return self.backend.reconstruct(counts, torch.zeros_like(
+                as_u32_bits(entries)), plan)
+        counts = counts.to(torch.int32)
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        # slot -> segment; ranks never cross segments, so this map holds
+        # across every trailing pass (computed once)
+        seg = torch.searchsorted(
+            ends, torch.arange(n, dtype=torch.int32, device=entries.device),
+            right=True).to(torch.int32)
+        seg_start = (ends - counts)[seg.long()]
+        u = as_u32_bits(entries)
+        for dp in plan.passes[:-1]:
+            rank = self._segment_rank(u, dp, seg, seg_start, last.n_bins)
+            (u,) = self.backend.scatter(rank, u)
+        return self.backend.reconstruct(counts, u, plan)
+
+    # -- streaming (batched) mode -------------------------------------------
+
+    def run_streaming(self, keys: torch.Tensor, plan: SortPlan,
+                      num_batches: int):
+        """Streaming sort (paper §III.C/D): the input arrives in
+        ``num_batches`` slices; the trie histogram is built per slice and
+        merged, ranks stream through the shared carry, and one scatter
+        groups entries by the plan's MSD prefix.  The trailing bits then
+        sort segment-aware (:meth:`run_grouped_trailing`) when the plan
+        supports it, else through a full :meth:`run`.  Returns
+        ``(sorted_keys, per-slice histograms)``."""
+        from repro_torch.core import fractal_tree as ft
+
+        if not plan.passes:
+            return keys, []  # the p=0 identity plan: nothing to histogram
+        n = keys.shape[0]
+        depth, t = plan.depth, plan.trailing_bits
+        last = plan.passes[-1]
+        slices = torch.tensor_split(keys, num_batches)
+        hists = [ft.build_histogram(s, plan.p, depth) for s in slices]
+        merged = hists[0]
+        for h in hists[1:]:
+            merged = ft.merge_histograms(merged, h)
+        counts = merged.leaf_counts
+        bin_start = ft.exclusive_cumsum(counts)
+        carry = torch.zeros((1 << depth,), dtype=torch.int32,
+                            device=keys.device)
+        grouped = t == 0 or plan.supports_grouped_trailing
+        out = torch.zeros((n,), dtype=torch.int32, device=keys.device)
+        for s in slices:
+            su = as_u32_bits(s)
+            prefix = (su >> t) & ((1 << depth) - 1)
+            rank, _, carry = self.backend.rank(
+                prefix, 1 << depth, carry_in=carry, bin_start=bin_start,
+                engine=last.engine)
+            # grouped mode scatters only the trailing entries (the prefix
+            # is implied by the destination segment); the fallback carries
+            # full keys for its plan re-run
+            out[rank.long()] = su & ((1 << t) - 1) if grouped else su
+        if grouped:  # covers t == 0: reconstruct from counts alone
+            sorted_u = self.run_grouped_trailing(out, counts, plan)
+        else:
+            sorted_u = self.run(out, plan)
+        return _like_keys(sorted_u, keys), hists
 
     # -- per-chunk histogram accumulation (streaming consumers) --------------
 

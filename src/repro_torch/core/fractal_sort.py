@@ -16,8 +16,9 @@ This module holds
   the ``(rank, counts, carry_out)`` streaming contract and
   ``carry_in``/``bin_start`` injection;
 * :func:`reconstruct` (Algorithm 5 with torch ops);
-* the public sorts :func:`fractal_sort`, :func:`fractal_sort_pairs` and
-  :func:`fractal_argsort`.  Each resolves a plan and hands it to a
+* the public sorts :func:`fractal_sort`, :func:`fractal_sort_pairs`,
+  :func:`fractal_argsort` and the streaming :func:`fractal_sort_batched`.
+  Each resolves a plan and hands it to a
   :class:`~repro_torch.core.executor.PlanExecutor` over
   :class:`~repro_torch.core.executor.CudaBackend` (the hand-written
   kernels) on a CUDA device or
@@ -45,11 +46,13 @@ from repro_torch.core.sort_plan import SortPlan, make_sort_plan, rank_chunk_len
 __all__ = [
     "PassStats",
     "SortStats",
+    "backend_name",
     "fractal_rank",
     "fractal_rank_scatter",
     "fractal_rank_serial",
     "fractal_sort",
     "fractal_argsort",
+    "fractal_sort_batched",
     "fractal_sort_pairs",
     "fractal_sort_stats",
     "keys_dtype",
@@ -390,16 +393,22 @@ def to_device(keys, device) -> torch.Tensor:
     return torch.as_tensor(keys).to(resolve_device(device))
 
 
-def make_backend(backend: Optional[str], device: torch.device, batch: int = 1024):
-    """``None`` → :class:`CudaBackend` on a CUDA device, :class:`TorchBackend`
-    on the CPU; ``"cuda"`` / ``"torch"`` pick explicitly."""
+def backend_name(backend: Optional[str], device: torch.device) -> str:
+    """``None`` → ``"cuda"`` on a CUDA device, ``"torch"`` on the CPU;
+    ``"cuda"`` / ``"torch"`` pick explicitly."""
     if backend is None:
-        backend = "cuda" if device.type == "cuda" else "torch"
-    if backend == "torch":
+        return "cuda" if device.type == "cuda" else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}: 'torch' or 'cuda'")
+    return backend
+
+
+def make_backend(backend: Optional[str], device: torch.device, batch: int = 1024):
+    """:class:`CudaBackend` or :class:`TorchBackend`, as
+    :func:`backend_name` resolves ``backend`` on ``device``."""
+    if backend_name(backend, device) == "torch":
         return TorchBackend(batch=batch)
-    if backend == "cuda":
-        return CudaBackend()
-    raise ValueError(f"unknown backend {backend!r}: 'torch' or 'cuda'")
+    return CudaBackend()
 
 
 def _resolve_plan(n: int, p: int, l_n: Optional[int],
@@ -457,3 +466,20 @@ def fractal_argsort(keys, p: int, batch: int = 1024,
     plan = _resolve_plan(keys.shape[0], p, None, max_bins_log2, plan)
     return PlanExecutor(make_backend(backend, keys.device, batch)
                         ).run_argsort(keys, plan)
+
+
+def fractal_sort_batched(keys, p: int, num_batches: int,
+                         l_n: Optional[int] = None, batch: int = 1024,
+                         max_bins_log2: Optional[int] = None,
+                         plan: Optional[SortPlan] = None, *, device=None,
+                         backend: Optional[str] = None):
+    """Streaming variant (paper §III.C/D): the input arrives in
+    ``num_batches`` slices whose trie histograms are built and merged;
+    ranks stream through the shared per-bin carry, one scatter groups the
+    entries by the plan's MSD prefix, and the executor's segment-aware
+    grouped-trailing passes order the trailing bits in place.  Returns
+    ``(sorted_keys, per-slice histograms)``."""
+    keys = to_device(keys, device)
+    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan)
+    return PlanExecutor(make_backend(backend, keys.device, batch)
+                        ).run_streaming(keys, plan, num_batches)

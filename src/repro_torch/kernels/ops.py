@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.executor import CudaBackend, PlanExecutor
+from repro_torch.core.executor import CudaBackend, PlanExecutor, _like_keys
 from repro_torch.core.fractal_sort import to_device
 from repro_torch.core.sort_plan import make_sort_plan
 from repro_torch.kernels.flash_attention import (
@@ -91,16 +91,6 @@ def reconstruct(counts, trailing, n_bins: int, t_bits: int):
     return _recon(counts, trailing, n_bins, t_bits)
 
 
-def _cast_like(out: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-    """int32 key bits returned in the input's dtype (the reference's
-    ``.astype(keys.dtype)``)."""
-    if out is keys or out.dtype == keys.dtype:
-        return out
-    if keys.dtype == torch.uint32:
-        return out.view(torch.uint32)
-    return out.to(keys.dtype)
-
-
 def fractal_sort_kernel(keys, p: int, block: int = 1024,
                         max_bins_log2: Optional[int] = None, *, device=None):
     """End-to-end kernel-path sort for keys in [0, 2**p), p <= 32: a
@@ -114,7 +104,7 @@ def fractal_sort_kernel(keys, p: int, block: int = 1024,
     keys = to_device(keys, device)
     plan = make_sort_plan(keys.shape[0], p, max_bins_log2=max_bins_log2)
     out = PlanExecutor(CudaBackend(block=block)).run(keys, plan)
-    return _cast_like(out, keys)
+    return _like_keys(out, keys)
 
 
 def fractal_sort_pairs_kernel(keys, values, p: int, block: int = 1024,
@@ -128,4 +118,4 @@ def fractal_sort_pairs_kernel(keys, values, p: int, block: int = 1024,
     plan = make_sort_plan(keys.shape[0], p, max_bins_log2=max_bins_log2)
     out, vals = PlanExecutor(CudaBackend(block=block)).run_pairs(
         keys, values, plan)
-    return _cast_like(out, keys), vals
+    return _like_keys(out, keys), vals

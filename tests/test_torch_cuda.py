@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import query as tq
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.core import (DigitPass, fractal_argsort, fractal_sort,
+from repro_torch.core import (CudaBackend, DigitPass, PlanExecutor,
+                              TorchBackend, dispatch, fractal_argsort,
+                              fractal_sort, fractal_sort_batched,
                               fractal_sort_pairs, make_sort_plan)
 from repro_torch.kernels import fractal_rank as rank_mod
 from repro_torch.kernels import ops, ref
@@ -416,3 +419,115 @@ def test_rank_scatter_table_only_above_256_bins(rng, cuda_device, monkeypatch,
     want = (["fs_rank_scatter_counts", "fs_rank_scatter"] if table
             else ["fs_rank_scatter_lookback"])
     assert called == want
+
+
+# --- the query layer on the card ------------------------------------------------
+
+
+def _query_cols(rng, n):
+    return {"k": rng.integers(0, n // 4, n).astype(np.int32),
+            "g": rng.integers(0, 50, n).astype(np.int32),
+            "u": rng.integers(0, 200, n).astype(np.uint8),
+            "f": rng.standard_normal(n).astype(np.float32),
+            "d": rng.standard_normal(n) * 1e6,
+            "row": np.arange(n, dtype=np.int32)}
+
+
+_QUERY_OPS = {
+    "order_by": lambda t: tq.order_by(t, [("k", "asc"), ("f", "desc")]),
+    "order_by_float64_desc": lambda t: tq.order_by(t, [("d", "desc"), "k"]),
+    "group_by": lambda t: tq.group_by(t, ["g", "u"], {
+        "s": ("k", "sum"), "c": (None, "count"), "lo": ("f", "min"),
+        "hi": ("d", "max"), "d_sum": ("d", "sum")}),
+    "distinct": lambda t: tq.distinct(t, ["u"]),
+    "top_k": lambda t: tq.top_k(t, [("d", "desc"), "k"], 100),
+    "join": lambda t: tq.sort_merge_join(t.select(["k", "f"]),
+                                         t.select(["k", "row"]), "k"),
+    "join_two_words": lambda t: tq.sort_merge_join(
+        t.select(["k", "g", "f"]), t.select(["k", "g", "row"]), ["k", "g"]),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_QUERY_OPS))
+def test_query_operator_on_card_matches_cpu(rng, cuda_device, op):
+    """Each operator at n = 2**16 on the card (CudaBackend: K1 and K2 on
+    every sort) against the same operator on the CPU port: bit-exact
+    (float64 sums within 1e-12: atomics add in another order)."""
+    cols = _query_cols(rng, 1 << 16)
+    on_cpu = _QUERY_OPS[op](tq.Table(cols, device="cpu")).to_numpy()
+    ops.reset_launch_counts()
+    on_card = _QUERY_OPS[op](tq.Table(cols, device=cuda_device)).to_numpy()
+    launched = ops.launch_counts()
+    assert launched["fractal_histogram"] > 0, launched
+    assert launched["fractal_rank_kernel"] > 0, launched
+    assert list(on_card) == list(on_cpu)
+    for name, want in on_cpu.items():
+        got = on_card[name]
+        assert got.dtype == want.dtype, name
+        if name == "d_sum":
+            np.testing.assert_allclose(got, want, rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_sort_rowids_batched_on_card_matches_cpu(rng, cuda_device):
+    words = rng.integers(0, 1 << 32, (1 << 16, 2),
+                         dtype=np.uint64).astype(np.uint32)
+    want_w, want_rid = tq.operators.sort_rowids_batched(
+        torch.from_numpy(words), 64, 12)
+    w, rid = tq.operators.sort_rowids_batched(
+        torch.from_numpy(words).to(cuda_device), 64, 12)
+    assert torch.equal(w.cpu(), want_w) and torch.equal(rid.cpu(), want_rid)
+
+
+def test_warm_order_by_is_one_probe_plus_one_chain_on_card(rng, cuda_device):
+    t = tq.Table(_query_cols(rng, 1 << 16), device=cuda_device)
+    by = [("k", "asc"), ("f", "desc")]
+    tq.order_by(t, by)
+    with dispatch.track() as seen:
+        tq.order_by(t, by)
+    assert {k: v for k, v in seen.items() if k.startswith("query.")} == {
+        "query.probe": 1, "query.chain": 1}
+
+
+# --- the executor's streaming and segmented modes on the card -------------------
+
+
+@pytest.mark.parametrize("p,num_batches,max_bins_log2", [
+    (16, 2, None), (24, 3, None), (32, 4, 16)])
+def test_fractal_sort_batched_on_card_matches_cpu(rng, cuda_device, p,
+                                                  num_batches, max_bins_log2):
+    """The streaming sort on the card carries each slice's counts into the
+    next rank kernel's bin starts: bit-exact with the CPU port, and it
+    launches K1 and a rank kernel."""
+    keys = rng.integers(0, 1 << p, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    tkeys = torch.from_numpy(keys if p == 32 else keys.astype(np.int32))
+    want, want_h = fractal_sort_batched(tkeys, p, num_batches,
+                                        max_bins_log2=max_bins_log2,
+                                        device="cpu")
+    ops.reset_launch_counts()
+    got, got_h = fractal_sort_batched(tkeys, p, num_batches,
+                                      max_bins_log2=max_bins_log2,
+                                      device=cuda_device)
+    launched = ops.launch_counts()
+    assert launched["fractal_histogram"] > 0, launched
+    assert (launched["fractal_rank_kernel"]
+            + launched["fractal_rank_scatter_kernel"]) > 0, launched
+    assert torch.equal(got.cpu(), want)
+    for gh, wh in zip(got_h, want_h):
+        assert torch.equal(gh.leaf_counts.cpu(), wh.leaf_counts)
+
+
+def test_wide_segment_table_on_card_matches_cpu(rng, cuda_device):
+    """A (segment, digit) table wider than one K1 histogram (512 segments
+    x 256 bins) is counted by K1 in 2^16-cell slices, one K1 launch a
+    slice and none inside the rank."""
+    n = 1 << 17
+    keys = torch.from_numpy(rng.integers(0, 256, n).astype(np.int32))
+    plan = make_sort_plan(n, 8, l_n=8)  # one 8-bit pass
+    want = PlanExecutor(TorchBackend()).run_segmented_argsort(keys, plan, 8)
+    ops.reset_launch_counts()
+    got = PlanExecutor(CudaBackend()).run_segmented_argsort(
+        keys.to(cuda_device), plan, 8)
+    assert ops.launch_counts()["fractal_histogram"] == 2
+    assert torch.equal(got.cpu(), want)

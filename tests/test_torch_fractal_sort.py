@@ -281,8 +281,12 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
             call()
     with pytest.raises(ValueError):
         fractal_sort(keys, 8, device="cpu", backend="bogus")
-    with pytest.raises(NotImplementedError):  # the kernel rank has no carry-in
-        CudaBackend().rank(keys, 16, carry_in=torch.zeros(16, dtype=torch.int32))
+    # the kernel rank takes a streaming carry-in as part of its bin starts
+    carry = torch.arange(16, dtype=torch.int32)
+    for got, want in zip(CudaBackend().rank(keys, 16, carry_in=carry),
+                         TorchBackend().rank(keys, 16, carry_in=carry,
+                                             engine="onehot")):
+        assert torch.equal(got, want)
 
 
 def test_pass_spans_carry_the_traffic_model(rng):

@@ -13,7 +13,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", *sorted((ROOT / "examples").glob("torch_*.py"))]
 
 
 def test_port_imports_load_no_jax_and_no_reference_module():
@@ -23,6 +24,8 @@ def test_port_imports_load_no_jax_and_no_reference_module():
         "import repro_torch.obs, repro_torch.configs, repro_torch.train_lib\n"
         "import repro_torch.models.transformer, repro_torch.models.convert\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.query, repro_torch.query.operators\n"
+        "import repro_torch.core.dispatch\n"
         "repro_torch.configs.get_config('llama3.2-1b')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
