@@ -2,11 +2,12 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) of FractalSort on one
 NVIDIA GPU and check it: the in-memory sort, the llama3.2-1b serving
 path (prefill through the flash-attention kernel, then the decode loop
-with the fractal-sort scheduler), and the query layer on TPC-H-shaped
-tables.
+with the fractal-sort scheduler), the query layer on TPC-H-shaped
+tables, and the out-of-core stream (external sort and streaming queries
+of host data under a device byte budget).
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
-                          [--query-log2n 26] [--profile]
+                          [--query-log2n 26] [--stream-log2n 24] [--profile]
 
 Phases, each fatal on failure:
 
@@ -98,12 +99,44 @@ then, with the model freed:
    calls); ``--profile`` adds the device time of one call of each query
    by kernel, and its idle share.
 
+then, with the query data freed:
+
+13. the external sort at the paper's smallest size: 2**log2n host keys
+   (512 MiB at the default 27) under ``MemoryBudget`` of 1/8 of their
+   bytes (64 MiB) on a ``RunStore`` in a temporary directory, source
+   chunks of ``budget.rows(row_cost_bytes(1))`` rows: ``external_sort``
+   of uniform and zipf(1.2) p = 32 keys and ``external_argsort`` of the
+   uniform ones, traced (``repro_torch.obs.trace``), each bit-exact
+   against ``torch.sort`` / ``torch.argsort(stable=True)`` of the keys as
+   int64 on the card (the check only); fatal unless each run's
+   ``budget.peak_bytes`` and the card's allocation rise
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``) stay
+   within the budget; wall ms, partitions, recursion depth, bytes spilled
+   and read back, both peaks and the seconds of the ``stream.histogram``,
+   ``stream.distribute``, ``stream.partition_sort``, ``store.put`` and
+   ``store.get`` spans, then the uniform sort untraced beside the
+   in-memory ``fractal_sort`` and ``torch.sort`` of the same keys; an
+   argsort of 2**24 keys with ``REPRO_STREAM_WORKERS`` 1 and 2 (equal
+   outputs); K1 at 1024 bins with an ``init`` carry at chunk length and
+   K2 at distribute's ``num_partitions + 1`` bins against their plain
+   versions;
+14. streaming queries: the first 2**stream_log2n rows of phase 11's
+   ``lineitem`` (regenerated from the same seed) on the host as a
+   ``StreamTable`` under a budget of 1/8 of their column bytes: ORDER BY
+   ship date as ``IntCodec(16)`` with every column riding, the Q1-shaped
+   GROUP BY, and top-10 by (extended price desc, order key), each
+   bit-exact against the in-memory operator on the same rows on the card
+   (float64 sums within ``QUERY_F64_RTOL``), fatal unless
+   ``budget.peak_bytes`` stays within the budget; each query's ms beside
+   the in-memory one.  Fails unless K1 and K2 launched on the stream path
+   (phases 13-14), whose launches form the kernel table's "stream" column.
+
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
-11).
+11, 13-14).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +144,7 @@ The last line of output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import gc
@@ -885,6 +919,299 @@ def query_phases(args, dev, card: str, path_counts: dict) -> list:
     return e2e
 
 
+def zipf_on_card(seed: int, phase: int, a: float, n: int, dev) -> np.ndarray:
+    """``n`` draws of Zipf(``a``) as host uint32, clamped to 2**32 - 1,
+    drawn on the card from ``(seed, phase)``: numpy's rejection sampler
+    (Devroye's, ``Generator.zipf``), vectorized, redrawing the rejected
+    slots; draws past 2**63 are rejected as numpy rejects them."""
+    gen = torch.Generator(device=dev).manual_seed(
+        int(phase_rng(seed, phase).integers(1 << 62)))
+    am1 = a - 1.0
+    b = 2.0 ** am1
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    todo = torch.arange(n, device=dev)
+    while todo.numel():
+        m = todo.numel()
+        u = 1.0 - torch.rand(m, generator=gen, dtype=torch.float64, device=dev)
+        v = torch.rand(m, generator=gen, dtype=torch.float64, device=dev)
+        x = torch.floor(u ** (-1.0 / am1))
+        t = (1.0 + 1.0 / x) ** am1
+        ok = (x >= 1) & (x < 2.0 ** 63) & (v * x * (t - 1.0) / (b - 1.0)
+                                            <= t / b)
+        out[todo[ok]] = x[ok]
+        todo = todo[~ok]
+    return out.clamp(max=(1 << 32) - 1).long().cpu().numpy().astype(np.uint32)
+
+
+def span_seconds(tr, name: str) -> float:
+    """Wall seconds of the spans named ``name`` in trace ``tr``."""
+    return sum(s["t1"] - s["t0"] for s in tr.find(name))
+
+
+STREAM_SPANS = ("stream.histogram", "stream.distribute",
+                "stream.partition_sort", "store.put", "store.get")
+
+
+def stream_phases(args, dev, card: str, path_counts: dict) -> tuple:
+    """Phases 13-14: the external sort of 2**log2n host keys under a
+    device budget of 1/8 of their bytes, and three streaming queries over
+    lineitem rows held on the host, each bit-exact against its in-memory
+    result on the card.  Adds ``path_counts["stream"]``; returns (e2e
+    rows, the kernels' max |err| at the stream's shapes)."""
+    from repro_torch import query as Q
+    from repro_torch import stream as S
+    from repro_torch.core import exclusive_cumsum, fractal_sort
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fractal_histogram import fractal_histogram
+    from repro_torch.kernels.fractal_rank import fractal_rank_kernel
+    from repro_torch.obs import trace
+    from repro_torch.stream.external import row_cost_bytes
+
+    counts = {k: 0 for k in ops.KERNELS}
+
+    def launched(fn):
+        """``fn()`` with the kernels' launches added to the stream path's."""
+        ops.reset_launch_counts()
+        out = fn()
+        for k, c in ops.launch_counts().items():
+            counts[k] += c
+        return out
+
+    def same(what, got: torch.Tensor, want: torch.Tensor):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{what}: differs from its check")
+
+    # -- 13. the external sort ----------------------------------------------------
+    n = 1 << args.log2n
+    t0 = time.perf_counter()
+    rng = phase_rng(args.seed, 13)
+    data = {
+        "uniform": rng.integers(0, 1 << 32, n, dtype=np.uint64)
+        .astype(np.uint32),
+        "zipf": zipf_on_card(args.seed, 13, 1.2, n, dev),
+    }
+    limit = 4 * n // 8  # 1/8 of the key bytes: 64 MiB at n = 2**27
+    rows = S.MemoryBudget(limit).rows(row_cost_bytes(1))
+    log(f"[stream] n = 2**{args.log2n} host keys a set ({4 * n / 2**20:.0f} "
+        f"MiB), budget {limit / 2**20:.0f} MiB, source chunks of {rows} "
+        f"rows, from seed {args.seed} in {time.perf_counter() - t0:.1f} s")
+
+    def external(kind, keys, argsort=False, traced=True):
+        """One external sort (or argsort) of host ``keys`` on the card:
+        (result, wall ms, budget, the card's allocation rise, store logs,
+        trace or None)."""
+        budget = S.MemoryBudget(limit)
+        store = S.RunStore()
+        fn = S.external_argsort if argsort else S.external_sort
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ctx = trace.tracing() if traced else contextlib.nullcontext()
+        with ctx as sess:
+            t1 = time.perf_counter()
+            out = launched(lambda: list(fn(S.ArraySource(keys, rows), 32,
+                                           budget, store=store, device=dev)))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        rise = torch.cuda.max_memory_allocated() - base
+        logs = (sum(store.put_log_bytes), sum(store.get_log_bytes),
+                len(store.put_log))  # fragments: base runs and slices
+        store.close()
+        # the keys come back as uint32 views; concatenate their int32 bits
+        if argsort:
+            out = (torch.cat([k.view(torch.int32) for k, _ in out]),
+                   torch.cat([i for _, i in out]))
+        else:
+            out = torch.cat([k.view(torch.int32) for k in out])
+        return (out, wall, budget, rise, logs,
+                sess.trace if traced else None)
+
+    def oracle(keys):
+        k64 = torch.from_numpy(keys).to(dev).view(torch.int32).long() \
+            & 0xFFFFFFFF
+        return torch.sort(k64, stable=True)
+
+    e2e, peaks = [], []
+    for kind, argsort in (("uniform", False), ("zipf", False),
+                          ("uniform", True)):
+        keys = data[kind]
+        out, wall, budget, rise, (put_b, get_b, puts), tr = external(
+            kind, keys, argsort)
+        want = oracle(keys)
+        if argsort:
+            same(f"external_argsort {kind} keys",
+                 out[0].to(dev).long() & 0xFFFFFFFF, want.values)
+            same(f"external_argsort {kind} row ids", out[1].to(dev),
+                 want.indices)
+        else:
+            same(f"external_sort {kind}", out.to(dev).long() & 0xFFFFFFFF,
+                 want.values)
+        del out, want
+        if budget.peak_bytes > budget.limit_bytes:
+            raise AssertionError(f"{kind}: budget peak {budget.peak_bytes} > "
+                                 f"limit {budget.limit_bytes}")
+        if rise > budget.limit_bytes:
+            raise AssertionError(f"{kind}: the card's allocations rose "
+                                 f"{rise} bytes, over the {limit}-byte budget")
+        peaks.append(rise)
+        levels = sorted({s["attrs"]["level_bits"]
+                         for s in tr.find("stream.histogram")}, reverse=True)
+        top = [s for s in tr.find("stream.distribute") if s["parent"] is None]
+        name = f"external_{'argsort' if argsort else 'sort'} {kind}"
+        row = {"name": name, "n": n, "budget_bytes": limit, "wall_ms": wall,
+               "partitions": top[0]["attrs"]["partitions"] if top else 1,
+               "recursion_depth": len(levels) - 1,
+               "spilled_bytes": put_b, "read_back_bytes": get_b,
+               "fragments": puts, "budget_peak_bytes": budget.peak_bytes,
+               "device_peak_rise_bytes": rise,
+               "span_s": {k: span_seconds(tr, k) for k in STREAM_SPANS}}
+        e2e.append(row)
+        log(f"[stream] {name}: bit-exact against torch.sort; {json.dumps(row)}")
+    # the same sort untraced (the spans' cost), and the in-memory sorts of
+    # the same keys on the card
+    keys = data["uniform"]
+    _, wall, _, _, _, _ = external("uniform", keys, traced=False)
+    on_card = torch.from_numpy(keys).to(dev)
+    k64 = on_card.view(torch.int32).long() & 0xFFFFFFFF
+    e2e.append({"name": "external_sort uniform, untraced", "n": n,
+                "wall_ms": wall,
+                "fractal_sort_ms": cuda_ms(
+                    lambda: fractal_sort(on_card, 32, device=dev), 1, 3),
+                "torch_sort_ms": cuda_ms(lambda: torch.sort(k64), 1, 3)})
+    log(f"[stream] {json.dumps(e2e[-1])}")
+    del on_card, k64
+    # REPRO_STREAM_WORKERS=2 gives the single worker's output
+    n24 = min(n, 1 << 24)
+    sub = data["uniform"][:n24]
+    outs = {}
+    for workers in (1, 2):
+        os.environ["REPRO_STREAM_WORKERS"] = str(workers)
+        budget = S.MemoryBudget(limit)
+        t1 = time.perf_counter()
+        parts = launched(lambda: list(S.external_argsort(
+            S.ArraySource(sub, rows), 32, budget, device=dev)))
+        outs[workers] = (torch.cat([k.view(torch.int32) for k, _ in parts]),
+                         torch.cat([i for _, i in parts]))
+        log(f"[stream] external_argsort n=2**{n24.bit_length() - 1} with "
+            f"{workers} worker(s): {(time.perf_counter() - t1) * 1e3:.1f} ms, "
+            f"budget peak {budget.peak_bytes} bytes")
+    os.environ.pop("REPRO_STREAM_WORKERS")
+    for a, b in zip(outs[1], outs[2]):
+        if not torch.equal(a, b):
+            raise AssertionError("2 stream workers changed the output")
+    log("[stream] 2 workers: the output equals the single worker's")
+    del outs, parts
+
+    # K1 and K2 at the stream's shapes against their plain versions (these
+    # launches count on no path): a chunk's 1024-bin field carried onto
+    # the counts of the chunk before, and distribute's partition ids
+    errs = {"fractal_histogram": 0, "fractal_rank_kernel": 0}
+
+    def agree(kernel, what, got, want):
+        err = max_abs_err(got, want)
+        errs[kernel] = max(errs[kernel], err)
+        if err:
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at {what}: max |err| = {err}")
+        log(f"[check] {kernel} at {what}: bit-exact with its plain version")
+
+    keys = torch.from_numpy(data["uniform"][:2 * rows]).to(dev)
+    field = (keys.view(torch.int32) >> 22) & 1023
+    carry = fractal_histogram(field[:rows].contiguous(), 1024)
+    chunk = field[rows:].contiguous()
+    agree("fractal_histogram", f"{chunk.numel()} rows x 1024 bins, init",
+          fractal_histogram(chunk, 1024, init=carry),
+          ref.histogram_ref(chunk, 1024, init=carry))
+    top = np.bincount(data["uniform"] >> 22, minlength=1024)
+    plan = S.partition_bins(top, S.MemoryBudget(limit).rows(
+        row_cost_bytes(1)))
+    lut = torch.from_numpy(S.partition.bin_to_partition(plan, 1024)
+                           .astype(np.int32)).to(dev)
+    pid = lut.index_select(0, chunk)
+    n_bins = len(plan) + 1
+    start = exclusive_cumsum(fractal_histogram(pid, n_bins))
+    agree("fractal_rank_kernel", f"{pid.numel()} rows x {n_bins} bins "
+          f"(distribute)", fractal_rank_kernel(pid, start, n_bins),
+          ref.rank_ref(pid, start, n_bins))
+    del keys, field, carry, chunk, pid, data
+
+    # -- 14. streaming queries -------------------------------------------------------
+    _, lineitem = tpch_tables(args.seed, args.query_log2n, dev)
+    m = min(lineitem.num_rows, 1 << args.stream_log2n)
+    host = Q.Table({c: lineitem.column(c)[:m].cpu()
+                    for c in lineitem.column_names}, device="cpu")
+    del lineitem
+    card_rows = Q.Table({c: host.column(c) for c in host.column_names},
+                        device=dev)
+    col_bytes = sum(host.column(c).nbytes for c in host.column_names)
+    q_limit = col_bytes // 8
+    q1_aggs = {"sum_qty": ("l_quantity", "sum"),
+               "sum_base_price": ("l_extendedprice", "sum"),
+               "count_order": (None, "count"),
+               "min_shipdate": ("l_shipdate", "min"),
+               "max_shipdate": ("l_shipdate", "max")}
+    ship16 = {"l_shipdate": Q.IntCodec(16)}
+    top_by = [("l_extendedprice", "desc"), "l_orderkey"]
+    queries = {
+        "order_by_shipdate_16bit": (
+            lambda t: Q.order_by(t, "l_shipdate", codecs=ship16)),
+        "q1_group_by": (lambda t: Q.group_by(
+            t, ["l_returnflag", "l_linestatus"], q1_aggs)),
+        "top_k_10": lambda t: Q.top_k(t, top_by, 10),
+    }
+    log(f"[stream] lineitem: the first {m} rows ({col_bytes / 2**20:.0f} MiB "
+        f"of columns) on the host, budget {q_limit / 2**20:.1f} MiB")
+    for name, op in queries.items():
+        st = S.StreamTable.from_table(host, S.MemoryBudget(q_limit),
+                                      device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with trace.tracing() as sess:
+            t1 = time.perf_counter()
+            got = launched(lambda: op(st))
+            if isinstance(got, S.StreamTable):
+                got = got.to_table()
+            wall = (time.perf_counter() - t1) * 1e3
+        rise = torch.cuda.max_memory_allocated() - base
+        want = op(card_rows)
+        rel = 0.0
+        for c in want.column_names:
+            g, w = got.column(c).to(dev), want.column(c)
+            if c == "sum_base_price":
+                rel = float(((g - w).abs() / w.abs().clamp_min(1e-300)).max())
+                if rel > QUERY_F64_RTOL:
+                    raise AssertionError(f"{name} {c}: relative error {rel}")
+            else:
+                same(f"{name} {c}", g, w)
+        if st.budget.peak_bytes > st.budget.limit_bytes:
+            raise AssertionError(f"{name}: budget peak {st.budget.peak_bytes}"
+                                 f" > limit {st.budget.limit_bytes}")
+        mem_ms, _ = query_ms(lambda: op(card_rows), iters=3)
+        e2e.append({"name": f"stream {name}", "rows": m,
+                    "budget_bytes": q_limit, "wall_ms": wall,
+                    "in_memory_ms": mem_ms,
+                    "budget_peak_bytes": st.budget.peak_bytes,
+                    "device_peak_rise_bytes": rise, "result_rows": got.num_rows,
+                    "f64_max_rel_err": rel,
+                    "recursion_depth": len({
+                        s["attrs"]["level_bits"]
+                        for s in sess.trace.find("stream.histogram")}) - 1,
+                    "span_s": {k: span_seconds(sess.trace, k)
+                               for k in STREAM_SPANS}})
+        log(f"[stream] {name}: bit-exact against the in-memory operator on "
+            f"the card; {json.dumps(e2e[-1])}")
+        del got, want
+    path_counts["stream"] = counts
+    for k in ("fractal_histogram", "fractal_rank_kernel"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the stream path launched no {k}")
+    log(f"[launches] stream path: {json.dumps(counts)}; device peak rise "
+        f"over the 2**{args.log2n} sorts {max(peaks)} bytes, budget {limit}")
+    return e2e, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -901,6 +1228,9 @@ def main() -> int:
     ap.add_argument("--query-log2n", type=int, default=26,
                     help="about 2**N lineitem rows (2**(N-2) orders) in the "
                          "query phases (default 26; 20 for a rehearsal)")
+    ap.add_argument("--stream-log2n", type=int, default=24,
+                    help="the first 2**N lineitem rows the streaming "
+                         "queries read from the host (default 24)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1363,8 +1693,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     e2e += query_phases(args, dev, card, path_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_e2e, stream_errs = stream_phases(args, dev, card, path_counts)
+    e2e += stream_e2e
 
-    # every kernel launched on a main path (sort, prefill, serve, query)
+    # every kernel launched on a main path (sort, prefill, serve, query,
+    # stream)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "
@@ -1373,6 +1708,8 @@ def main() -> int:
         if c <= 0:
             raise AssertionError(f"{name} was never launched on a main path")
     for entry in table:
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   stream_errs.get(entry["name"], 0))
         entry["launches"] = totals[entry["name"]]
         entry["launches_by_path"] = {p: c.get(entry["name"], 0)
                                      for p, c in path_counts.items()}

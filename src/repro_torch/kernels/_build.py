@@ -139,6 +139,17 @@ def check_operand(t: torch.Tensor, name: str,
                          f"take fewer than 2**31")
 
 
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: the stream's partition
+    sorts launch kernels from worker threads, and ``+= 1`` on a function
+    attribute is not atomic across them."""
+    with _launch_lock:
+        wrapper.launches += 1
+
+
 def stream(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, as the pointer the C
     entries take."""

@@ -78,7 +78,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, H, Sq, Skv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
         _build.stream(q.device)), "flash_attention_kernel")
-    flash_attention_kernel.launches += 1
+    _build.count_launch(flash_attention_kernel)
     return out
 
 

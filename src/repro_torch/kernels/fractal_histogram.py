@@ -71,7 +71,7 @@ def fractal_histogram(keys: torch.Tensor, n_bins: int,
         _build.check(_lib().fs_histogram(
             keys.data_ptr(), n, out.data_ptr(), n_bins,
             _build.stream(keys.device)), "fractal_histogram")
-        fractal_histogram.launches += 1
+        _build.count_launch(fractal_histogram)
     return out
 
 
@@ -149,8 +149,8 @@ def fractal_histogram_digits(keys: torch.Tensor, passes,
             arr(*(dp.shift for dp in passes)),
             arr(*(dp.bits for dp in passes)), arr(*groups),
             _build.stream(u.device)), "fractal_histogram_digits")
-        fractal_histogram.launches += 1
-        fractal_histogram_digits.launches += 1
+        _build.count_launch(fractal_histogram)
+        _build.count_launch(fractal_histogram_digits)
     return tuple(out.split(sizes))
 
 

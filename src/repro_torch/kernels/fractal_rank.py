@@ -203,14 +203,14 @@ def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
             keys.data_ptr(), n, bin_start.data_ptr(), rank.data_ptr(),
             n_bins, status.data_ptr(), _build.stream(keys.device)),
             "fractal_rank_kernel")
-        fractal_rank_kernel.launches += 1
+        _build.count_launch(fractal_rank_kernel)
     elif n:
         tile = onehot_tile_len(n_bins, block)
         starts = _tile_starts(keys, bin_start, n_bins, tile)
         _build.check(_lib().fs_rank_onehot(
             keys.data_ptr(), n, starts.data_ptr(), rank.data_ptr(), n_bins,
             tile, _build.stream(keys.device)), "fractal_rank_kernel")
-        fractal_rank_kernel.launches += 1
+        _build.count_launch(fractal_rank_kernel)
     return rank
 
 
@@ -246,13 +246,13 @@ def fractal_rank_scatter_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
             keys.data_ptr(), n, bin_start.data_ptr(), rank.data_ptr(),
             n_bins, status.data_ptr(), _build.stream(keys.device)),
             "fractal_rank_scatter_kernel")
-        fractal_rank_scatter_kernel.launches += 1
+        _build.count_launch(fractal_rank_scatter_kernel)
     elif n:
         starts = _scatter_tile_starts(keys, bin_start, n_bins)
         _build.check(_lib().fs_rank_scatter(
             keys.data_ptr(), n, starts.data_ptr(), rank.data_ptr(), n_bins,
             _build.stream(keys.device)), "fractal_rank_scatter_kernel")
-        fractal_rank_scatter_kernel.launches += 1
+        _build.count_launch(fractal_rank_scatter_kernel)
     return rank
 
 

@@ -49,7 +49,7 @@ def fractal_reconstruct(counts: torch.Tensor, trailing: torch.Tensor,
         _build.check(_lib().fs_reconstruct(
             cdf.data_ptr(), n_bins, trailing.data_ptr(), out.data_ptr(), n,
             t_bits, _build.stream(trailing.device)), "fractal_reconstruct")
-        fractal_reconstruct.launches += 1
+        _build.count_launch(fractal_reconstruct)
     return out
 
 

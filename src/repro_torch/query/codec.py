@@ -224,7 +224,11 @@ class Float64Codec(Codec):
     bits: int = 64
 
     def prepare(self, col):
-        x = _tensor(col).to(torch.float64).contiguous()
+        x = _tensor(col).to(torch.float64)
+        if x.stride() != (1,):
+            # a 0-row array from numpy has stride (0,), which .contiguous()
+            # keeps and the bitcast to int32 halves refuses
+            x = x.clone(memory_format=torch.contiguous_format)
         return x.view(torch.int32).view(-1, 2)
 
     def encode_fn(self, prepped):

@@ -26,10 +26,13 @@ only scalars to the host: the used-bits probe (one word each), the group
 count, the join's match count and top-k's candidate count.  No operator
 grows a pass loop: the plan-pass loop stays in ``core/executor.py``.
 
-The reference also takes an out-of-core ``StreamTable`` and a
-``placement=`` store; those belong to the stream subsystem, which this
-package has not ported yet (ROADMAP queue 1 item 8), and raise
-``NotImplementedError`` here.
+``order_by`` / ``group_by`` / ``top_k`` also accept a
+:class:`~repro_torch.stream.table_ops.StreamTable` — a chunk-streamed
+table larger than its memory budget — and dispatch to the out-of-core
+subsystem (:mod:`repro_torch.stream`), which routes each histogram
+partition back through these same in-memory primitives; ``placement=``
+(a :class:`~repro_torch.stream.chunks.PlacementStore`) holds its working
+fragments.
 """
 
 from __future__ import annotations
@@ -70,12 +73,49 @@ __all__ = [
     "sort_rowids_batched",
 ]
 
-def _check_in_memory(table, placement=None) -> None:
-    if not isinstance(table, Table) or placement is not None:
+def _stream_ops(table):
+    """The streaming-operator module when ``table`` is a StreamTable, else
+    None for a Table (imported lazily: the query layer does not pull the
+    stream subsystem in at import time)."""
+    if isinstance(table, Table):
+        return None
+    from repro_torch.stream import table_ops
+
+    if isinstance(table, table_ops.StreamTable):
+        return table_ops
+    raise TypeError(f"expected a repro_torch.query.Table or a "
+                    f"repro_torch.stream.StreamTable, got "
+                    f"{type(table).__name__}")
+
+
+def _check_placement(stream, placement, plans) -> None:
+    """A StreamTable takes any PlacementStore and no pinned plans; an
+    in-memory Table takes no placement."""
+    if stream is None:
+        if placement is not None:
+            raise ValueError(
+                "placement is the out-of-core fragment store; an in-memory "
+                "Table sorts in place — wrap it in a StreamTable to place it")
+        return
+    if plans is not None:
+        raise ValueError("pinned plans don't apply out-of-core: each "
+                         "partition resolves plans for its own length")
+    from repro_torch.stream.chunks import PlacementStore
+
+    if placement is not None and not isinstance(placement, PlacementStore):
         raise NotImplementedError(
-            "out-of-core tables (StreamTable) and placement= belong to the "
-            "stream subsystem, not ported yet (ROADMAP queue 1 item 8); "
-            "pass an in-memory repro_torch.query.Table")
+            f"placement {type(placement).__name__} is not a "
+            "repro_torch.stream.PlacementStore; the device placement "
+            "(DeviceShardStore) waits for ROADMAP queue 1 \"Distributed "
+            "backend and device store\"")
+
+
+def _check_in_memory(table, op: str) -> None:
+    if not isinstance(table, Table):
+        _stream_ops(table)  # a TypeError unless a StreamTable
+        raise TypeError(
+            f"{op} is in-memory only; stream through order_by/group_by "
+            "(repro_torch.stream) or materialize with StreamTable.to_table()")
 
 
 def _normalize_by(by) -> Tuple[Tuple[str, bool], ...]:
@@ -99,18 +139,23 @@ def _normalize_by(by) -> Tuple[Tuple[str, bool], ...]:
     return tuple(out)
 
 
+def _composite_codec(table: Table, by,
+                     codecs: Optional[Mapping[str, Codec]]) -> CompositeCodec:
+    """The key columns' composite codec: ``codecs[name]`` or the codec of
+    the column's dtype, in key order."""
+    return CompositeCodec([
+        ColumnSpec((codecs or {}).get(name) or infer_codec(table.column(name)),
+                   ascending=asc)
+        for name, asc in _normalize_by(by)])
+
+
 def _key_data(table: Table, by, codecs: Optional[Mapping[str, Codec]]):
     """(CompositeCodec, prepared key columns): the fused sort's input.
     ``prepare`` is a bitcast only; the order-preserving encode runs inside
     the sort chain (:func:`sort_rowids_fused`)."""
-    specs, cols = [], []
-    for name, asc in _normalize_by(by):
-        col = table.column(name)
-        codec = (codecs or {}).get(name) or infer_codec(col)
-        specs.append(ColumnSpec(codec, ascending=asc))
-        cols.append(col)
-    codec = CompositeCodec(specs)
-    return codec, codec.prepare(cols)
+    codec = _composite_codec(table, by, codecs)
+    return codec, codec.prepare(
+        [table.column(name) for name, _ in _normalize_by(by)])
 
 
 def active_words(bits: int, low_bits: Optional[int] = None,
@@ -356,8 +401,16 @@ def order_by(table: Table, by, codecs: Optional[Mapping[str, Codec]] = None,
              plans: Optional[Tuple[SortPlan, ...]] = None,
              placement=None, *, backend: Optional[str] = None) -> Table:
     """Multi-column ORDER BY (stable): rows reordered by one gather of the
-    sort's row ids.  ``plans`` pins per-word sort plans."""
-    _check_in_memory(table, placement)
+    sort's row ids.  ``plans`` pins per-word sort plans.
+
+    A StreamTable input runs out-of-core and returns a StreamTable of
+    sorted runs (:func:`~repro_torch.stream.table_ops.stream_order_by`);
+    ``placement`` (StreamTable only) holds the working fragments."""
+    stream = _stream_ops(table)
+    _check_placement(stream, placement, plans)
+    if stream is not None:
+        return stream.stream_order_by(table, by, codecs, placement=placement,
+                                      backend=backend)
     with _op_scope("order_by", len(table)):
         codec, prepped = _key_data(table, by, codecs)
         _, rowids = sort_rowids_fused(codec, prepped, plans, backend=backend)
@@ -397,8 +450,13 @@ def top_k(table: Table, by, k: int,
     every top-k row has a leading digit ``<= cut``, and only those
     candidate rows (taken in arrival order) enter the sort.  ``plans``
     applies when the sort runs over all rows; a pruned subset resolves
-    plans for its own length."""
-    _check_in_memory(table, placement)
+    plans for its own length.  A StreamTable input prunes ahead of
+    placement (:func:`~repro_torch.stream.table_ops.stream_top_k`)."""
+    stream = _stream_ops(table)
+    _check_placement(stream, placement, plans)
+    if stream is not None:
+        return stream.stream_top_k(table, by, k, codecs, store=placement,
+                                   backend=backend)
     if k <= 0:
         return table.head(0)
     with _op_scope("top_k", len(table)):
@@ -443,7 +501,7 @@ def distinct(table: Table, by=None,
     """DISTINCT ON the key columns: the first-arriving row of every
     distinct key combination, output sorted by key (the stable sort makes
     "first" well-defined)."""
-    _check_in_memory(table)
+    _check_in_memory(table, "distinct")
     by = _normalize_by(by if by is not None else table.column_names)
     with _op_scope("distinct", len(table)):
         codec, prepped = _key_data(table, by, codecs)
@@ -515,8 +573,14 @@ def group_by(table: Table, by, aggs: Mapping[str, Tuple[Optional[str], str]],
     (``aggs``: out name → (column or None, "sum" | "count" | "min" |
     "max")) is a scatter-reduce of the gathered value column over segment
     ids, on the device.  Output: one row per group, sorted by key; key
-    columns decoded from the segment-start codes."""
-    _check_in_memory(table, placement)
+    columns decoded from the segment-start codes.  A StreamTable input
+    aggregates out-of-core, partition by partition
+    (:func:`~repro_torch.stream.table_ops.stream_group_by`)."""
+    stream = _stream_ops(table)
+    _check_placement(stream, placement, plans)
+    if stream is not None:
+        return stream.stream_group_by(table, by, aggs, codecs,
+                                      placement=placement, backend=backend)
     by = _normalize_by(by)
     for col, op in aggs.values():
         if op not in _AGGS:
@@ -608,8 +672,8 @@ def sort_merge_join(left: Table, right: Table, on,
     matching right range ``[lo, hi)``, expanded into row-id pairs on the
     device.  Output rows are sorted by key, ties by (left arrival, right
     arrival).  ``plans`` (one per code word) applies to both sides."""
-    _check_in_memory(left)
-    _check_in_memory(right)
+    _check_in_memory(left, "sort_merge_join")
+    _check_in_memory(right, "sort_merge_join")
     by = _normalize_by(on)
     for name, asc in by:
         if not asc:

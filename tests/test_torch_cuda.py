@@ -531,3 +531,183 @@ def test_wide_segment_table_on_card_matches_cpu(rng, cuda_device):
         keys.to(cuda_device), plan, 8)
     assert ops.launch_counts()["fractal_histogram"] == 2
     assert torch.equal(got.cpu(), want)
+
+
+# --- the out-of-core stream on the card ------------------------------------------
+
+
+def _stream_keys(rng, n, p):
+    return rng.integers(0, 1 << p, n, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("p", [16, 32])
+def test_external_sort_and_argsort_on_card_match_torch_sort(rng, cuda_device,
+                                                            p):
+    from repro_torch import stream as ts
+    from repro_torch.stream.external import row_cost_bytes
+
+    keys = _stream_keys(rng, 200_000, p)
+    if p < 32:
+        keys = keys.astype(np.int32)
+    want = torch.sort(torch.from_numpy(keys.astype(np.int64)), stable=True)
+    budget = ts.MemoryBudget(256 * 1024)  # the keys are 3x the budget
+    rows = budget.rows(row_cost_bytes(1))
+    ops.reset_launch_counts()
+    got = torch.cat(list(ts.external_sort(ts.ArraySource(keys, rows), p,
+                                          budget)))
+    assert got.device.type == "cpu"
+    assert got.dtype == (torch.uint32 if p == 32 else torch.int32)
+    assert torch.equal(torch.from_numpy(got.numpy().astype(np.int64)),
+                       want.values)
+    pieces = list(ts.external_argsort(ts.ArraySource(keys, rows), p, budget))
+    assert torch.equal(torch.cat([i for _, i in pieces]), want.indices)
+    counts = ops.launch_counts()
+    assert counts["fractal_histogram"] > 0 and counts["fractal_rank_kernel"] > 0
+    assert budget.peak_bytes <= budget.limit_bytes
+
+
+@pytest.mark.parametrize("num_partitions", [100, 300])
+def test_distribute_split_on_card_matches_plain_rank(rng, cuda_device,
+                                                     num_partitions):
+    """The store's device split (K1 counts, K2 rank, one scatter) on both
+    sides of K2's 256-bin switch equals the CPU's plain split, sliced or
+    not."""
+    from repro_torch.stream.chunks import PlacementStore
+
+    n = 50_001
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    pay = (torch.arange(n, dtype=torch.int64),
+           torch.from_numpy(rng.standard_normal(n)))
+    pid = torch.from_numpy(rng.integers(-1, num_partitions, n)
+                           .astype(np.int32))
+    want = PlacementStore._split(words, pay, pid, num_partitions, "torch")
+    for slice_rows in (None, 7_000):
+        ops.reset_launch_counts()
+        got = PlacementStore._split(
+            words.to(cuda_device), tuple(p.to(cuda_device) for p in pay),
+            pid.to(cuda_device), num_partitions, None, slice_rows)
+        assert ops.launch_counts()["fractal_rank_kernel"] > 0
+        np.testing.assert_array_equal(got[0], want[0])
+        for g, w in zip(got[1], want[1]):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("bits,sort_bits,num_words,payload", [
+    (32, 32, 1, 0), (32, 24, 1, 0), (32, 24, 1, 8), (64, 56, 2, 20)])
+def test_row_cost_model_covers_the_measured_partition_sort(
+        rng, cuda_device, bits, sort_bits, num_words, payload):
+    """One partition sort at the most rows the model admits, padded to
+    nearly twice that: the card's measured allocation peak during the
+    sort stays within the model's bytes (host and device together), and
+    the whole working set within the budget."""
+    from repro_torch.stream import MemoryBudget, RunStore
+    from repro_torch.stream.chunks import partition_sort_bytes
+    from repro_torch.stream.external import row_cost_bytes
+
+    budget = MemoryBudget(64 << 20)
+    m = budget.rows(row_cost_bytes(num_words, payload))
+    L = 1 << (m - 1).bit_length()
+    words = rng.integers(0, 1 << 32, (m, num_words), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[:, 0] &= np.uint32((1 << (32 - (bits - sort_bits))) - 1)
+    pays = ((rng.integers(0, 1 << 62, m, dtype=np.int64),) if payload == 8
+            else (rng.standard_normal(m), rng.integers(0, 9, m)
+                  .astype(np.int32), rng.integers(0, 9, m).astype(np.int64))
+            if payload else ())
+    assert sum(p.dtype.itemsize for p in pays) == payload
+    store = RunStore()
+    store.sort_rows(words, pays, bits, sort_bits, budget, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, gathered = store.sort_rows(words, pays, bits, sort_bits, budget,
+                                    device=cuda_device)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    model = partition_sort_bytes(L, m, num_words, payload)
+    assert measured <= model, (measured, model)
+    assert model <= budget.limit_bytes
+    order = np.lexsort(tuple(words[:, j] for j in
+                             range(num_words - 1, -1, -1)))
+    np.testing.assert_array_equal(got, words[order])
+    for g, p in zip(gathered, pays):
+        np.testing.assert_array_equal(g, p[order])
+    store.close()
+
+
+def test_stream_table_operators_on_card_match_in_memory(rng, cuda_device):
+    from repro_torch import stream as ts
+
+    n = 60_000
+    cols = {"k": rng.integers(-500, 500, n).astype(np.int32),
+            "v": rng.integers(0, 1000, n).astype(np.int32),
+            "f": rng.standard_normal(n)}
+    host = tq.Table(cols, device="cpu")
+    card = tq.Table(cols, device=cuda_device)
+    st = ts.StreamTable.from_table(host, ts.MemoryBudget(128 * 1024))
+    ops.reset_launch_counts()
+    got = tq.order_by(st, [("k", "asc"), ("v", "desc")]).to_table()
+    want = tq.order_by(card, [("k", "asc"), ("v", "desc")])
+    for name in cols:
+        np.testing.assert_array_equal(got.to_numpy()[name],
+                                      want.to_numpy()[name])
+    aggs = {"s": ("v", "sum"), "c": (None, "count"), "fs": ("f", "sum"),
+            "mx": ("v", "max")}
+    g, w = tq.group_by(st, "k", aggs).to_numpy(), \
+        tq.group_by(card, "k", aggs).to_numpy()
+    for name in ("k", "s", "c", "mx"):
+        np.testing.assert_array_equal(g[name], w[name])
+    np.testing.assert_allclose(g["fs"], w["fs"], rtol=1e-12)
+    by = [("f", "desc"), ("k", "asc")]
+    top = tq.top_k(st, by, 10).to_numpy()
+    want_top = tq.top_k(card, by, 10).to_numpy()
+    for name in cols:
+        np.testing.assert_array_equal(top[name], want_top[name])
+    counts = ops.launch_counts()
+    assert counts["fractal_histogram"] > 0 and counts["fractal_rank_kernel"] > 0
+    assert st.budget.peak_bytes <= st.budget.limit_bytes
+
+
+def test_stream_on_card_never_falls_back_to_torch_backend(rng, cuda_device,
+                                                          monkeypatch):
+    """With the card present, the histogram, the distribute and the
+    partition sorts all run on CudaBackend: TorchBackend's rank raising
+    changes nothing, and the results are those of the CPU."""
+    from repro_torch import stream as ts
+
+    def refuse(*a, **kw):
+        raise AssertionError("TorchBackend used on the card")
+
+    monkeypatch.setattr(TorchBackend, "rank", refuse)
+    monkeypatch.setattr(TorchBackend, "histogram", refuse)
+    keys = _stream_keys(rng, 100_000, 32)
+    budget = ts.MemoryBudget(128 * 1024)
+    got = torch.cat(list(ts.external_sort(ts.ArraySource(keys, 4096), 32,
+                                          budget)))
+    np.testing.assert_array_equal(got.numpy(), np.sort(keys))
+    t = tq.Table({"k": keys.view(np.int32)}, device="cpu")
+    st = ts.StreamTable.from_table(t, budget)
+    assert st.to_table().num_rows == keys.shape[0]
+    out = tq.order_by(st, "k").to_table().to_numpy()["k"]
+    np.testing.assert_array_equal(out, np.sort(keys.view(np.int32)))
+
+
+def test_external_argsort_on_card_worker_count_invariant(rng, cuda_device,
+                                                         monkeypatch):
+    from repro_torch import stream as ts
+
+    keys = _stream_keys(rng, 300_000, 32)
+
+    def run(workers):
+        monkeypatch.setenv("REPRO_STREAM_WORKERS", str(workers))
+        budget = ts.MemoryBudget(256 * 1024)
+        parts = list(ts.external_argsort(ts.ArraySource(keys, 8192), 32,
+                                         budget))
+        return torch.cat([i for _, i in parts])
+
+    one, two = run(1), run(2)
+    assert torch.equal(one, two)
+    assert torch.equal(one, torch.from_numpy(np.argsort(keys,
+                                                        kind="stable")))

@@ -507,6 +507,48 @@ def test_operators_on_empty_table():
         assert tq.top_k(t, "k", 3, backend=backend).num_rows == 0
 
 
+_EMPTY_F64_OPS = {
+    "order_by": lambda m, e, f: m.order_by(e, "k"),
+    "group_by": lambda m, e, f: m.group_by(
+        e, "k", {"s": ("v", "sum"), "c": (None, "count"), "mx": ("v", "max")}),
+    "distinct": lambda m, e, f: m.distinct(e, "k"),
+    "top_k": lambda m, e, f: m.top_k(e, [("k", "desc")], 3),
+    "join_left_empty": lambda m, e, f: m.sort_merge_join(e, f, "k"),
+    "join_right_empty": lambda m, e, f: m.sort_merge_join(f, e, "k"),
+    "join_both_empty": lambda m, e, f: m.sort_merge_join(e, e, "k"),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_EMPTY_F64_OPS))
+def test_operators_on_empty_float64_key_column(rng, op):
+    """A 0-row float64 column built from numpy has stride (0,); the codec's
+    bitcast to int32 halves must still take it, and every operator return
+    the reference's 0-row result."""
+    # int32 values: the reference hands back an empty float64 aggregate
+    # as float32 (jax without x64), a dtype the port does not copy
+    ref_e, e = _tables({"k": np.zeros(0, np.float64),
+                        "v": np.zeros(0, np.int32)})
+    full = {"k": rng.standard_normal(9),
+            "v": rng.integers(-5, 5, 9).astype(np.int32)}
+    ref_f, f = _tables(full)
+    run = _EMPTY_F64_OPS[op]
+    want = run(rq, ref_e, ref_f)
+    assert want.num_rows == 0
+    for backend in BACKENDS:
+        _check_table(run(_BackendOps(backend), e, f), want)
+
+
+class _BackendOps:
+    """``repro_torch.query``'s operators with ``backend=`` bound."""
+
+    def __init__(self, backend: str):
+        self._backend = backend
+
+    def __getattr__(self, name):
+        op = getattr(tq, name)
+        return lambda *a, **kw: op(*a, backend=self._backend, **kw)
+
+
 def test_operators_accept_pinned_plans(rng):
     """Pinned plans (the reference's, converted) sort as the defaults do,
     in every operator."""
@@ -592,15 +634,27 @@ def test_dispatch_counts_land_in_the_metrics_registry():
 
 
 def test_stream_inputs_and_placement_name_the_stream_item(rng):
+    """A placement on an in-memory Table is refused (ValueError, as the
+    reference refuses it); inputs that are neither a Table nor a
+    StreamTable are a TypeError; a StreamTable's placement that is not a
+    PlacementStore names the missing device store's ROADMAP item."""
+    from repro_torch.stream import MemoryBudget, StreamTable
+
     t = tq.Table({"k": np.arange(8, dtype=np.int32)}, device="cpu")
     for call in (lambda: tq.order_by(t, "k", placement=object()),
                  lambda: tq.top_k(t, "k", 3, placement=object()),
-                 lambda: tq.group_by(t, "k", {}, placement=object()),
-                 lambda: tq.order_by({"k": np.arange(8)}, "k"),
+                 lambda: tq.group_by(t, "k", {}, placement=object())):
+        with pytest.raises(ValueError, match="placement"):
+            call()
+    for call in (lambda: tq.order_by({"k": np.arange(8)}, "k"),
                  lambda: tq.distinct(object()),
                  lambda: tq.sort_merge_join(t, object(), "k")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(TypeError):
             call()
+    st = StreamTable.from_table(t, MemoryBudget(1024), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="Distributed backend and device store"):
+        tq.top_k(st, "k", 3, placement=object())
 
 
 def test_table_defaults_to_the_card_and_gathers_every_dtype(rng):
