@@ -31,6 +31,7 @@ from repro_torch.core.sort_plan import (
 )
 from repro_torch.core.executor import (
     CudaBackend,
+    DistributedBackend,
     PassBackend,
     PlanExecutor,
     TorchBackend,
@@ -50,4 +51,12 @@ from repro_torch.core.fractal_sort import (
     rank_engine,
     reconstruct,
     resolve_device,
+)
+from repro_torch.core.distributed import (
+    distributed_fractal_argsort,
+    distributed_fractal_sort,
+    make_distributed_argsort,
+    make_distributed_sort,
+    make_distributed_sort_pairs,
+    make_fragment_placer,
 )

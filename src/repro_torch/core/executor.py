@@ -10,7 +10,10 @@ delegates the per-pass primitives to a pluggable :class:`PassBackend`:
 * :class:`CudaBackend` — the hand-written Hopper kernels (histogram K1,
   one-hot rank K2, scatter rank K3, reconstruct K4) from
   :mod:`repro_torch.kernels` (the reference's ``PallasBackend``).  On CPU
-  tensors the kernel wrappers compute their plain versions.
+  tensors the kernel wrappers compute their plain versions;
+* :class:`DistributedBackend` — one collective pass per plan digit over a
+  ``torch.distributed`` group, each rank ranking its shard on a local
+  backend (:mod:`repro_torch.core.distributed`).
 
 Executor responsibilities (backend-independent): digit extraction, pass
 sequencing (stable LSD digit passes, then the fractal MSD pass), payload
@@ -38,12 +41,22 @@ __all__ = [
     "PassBackend",
     "TorchBackend",
     "CudaBackend",
+    "DistributedBackend",
     "PlanExecutor",
 ]
 
 
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
+
+
+def _signed(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or for uint16/32/64 its bits as the signed type of the same
+    width: torch has no index_put for them, and the collectives no wire
+    type."""
+    signed = _SIGNED_VIEW.get(t.dtype)
+    return t if signed is None else t.view(signed)
+
 
 # Cells of a segment table one histogram call counts: K1's widest
 # histogram, so a wider table takes one K1 launch per slice.
@@ -83,6 +96,14 @@ class PassBackend:
     #: base chunk length the per-pass ``rank_batch`` hints derive from
     rank_base: int = 1024
 
+    #: whether the MSD pass rebuilds its prefix bits from bin positions
+    #: (Algorithm 5); a backend that places every digit exactly runs the
+    #: MSD digit as one more LSD pass instead
+    reconstructs: bool = True
+
+    def begin_run(self) -> None:
+        """Called by the executor at the start of every run."""
+
     def rank(self, digit: torch.Tensor, n_bins: int, *,
              batch_hint: Optional[int] = None,
              carry_in: Optional[torch.Tensor] = None,
@@ -118,13 +139,10 @@ class PassBackend:
         idx = rank.long()
         outs = []
         for a in arrays:
-            # torch has no index_put for uint16/32/64: move their bits as
-            # the signed type of the same width
-            signed = _SIGNED_VIEW.get(a.dtype)
-            src = a if signed is None else a.view(signed)
+            src = _signed(a)
             out = torch.zeros_like(src)
             out[idx] = src
-            outs.append(out if signed is None else out.view(a.dtype))
+            outs.append(out.view(a.dtype))
         return tuple(outs)
 
     def lsd_pass_pairs(self, u: torch.Tensor, payloads: tuple,
@@ -181,7 +199,9 @@ class TorchBackend(PassBackend):
 class CudaBackend(PassBackend):
     """Hand-written kernel primitives: K1 histogram (every pass's counts in
     one sweep before the pass loop when the plan fits it), K2/K3 rank (by
-    the pass's engine hint; ``None`` → the one-hot kernel K2), K4
+    the pass's engine hint; ``None`` → the one-hot kernel K2, and so is a
+    "scatter" hint whose K3 count table would pass
+    :data:`~repro_torch.kernels.fractal_rank.TABLE_CAP`), K4
     reconstruct.  ``block`` is the rank kernels' tile.  A streaming
     ``carry_in`` is folded into the bin starts the rank kernel takes
     (rank = bin start + carry + arrival)."""
@@ -191,8 +211,15 @@ class CudaBackend(PassBackend):
 
     def rank(self, digit, n_bins, *, batch_hint=None, carry_in=None,
              bin_start=None, engine=None, counts=None):
-        from repro_torch.kernels.fractal_rank import fractal_rank_counts
+        from repro_torch.kernels.fractal_rank import (fractal_rank_counts,
+                                                      scatter_table_fits)
 
+        if engine == "scatter" and not scatter_table_fits(digit.shape[0],
+                                                          n_bins):
+            # K3's count table would pass its cap at this shape; K2's tile
+            # grows with the bins, so its table stays within the key count
+            # and it gives the same ranks
+            engine = "onehot"
         if carry_in is not None:
             if bin_start is None:
                 if counts is None:
@@ -225,6 +252,52 @@ class CudaBackend(PassBackend):
             fractal_reconstruct_plan)
 
         return fractal_reconstruct_plan(counts, trailing, plan)
+
+
+class DistributedBackend(PassBackend):
+    """One collective pass per plan digit over a ``torch.distributed``
+    process group; every rank runs the executor on its own shard.
+
+    Every pass is *exact* global placement on its field (the local
+    backend's histogram and rank, the group's merged counts for the
+    global bin starts and each rank's arrival offset, then bucketed
+    ``all_to_all_single`` routing), so there is nothing to reconstruct:
+    the MSD digit runs as one more exact pass (``reconstructs = False``).
+    ``local`` ranks and counts each shard (:class:`CudaBackend` on the
+    card, :class:`TorchBackend` on the CPU).  Bucket-overflow flags (0-dim
+    bool tensors, equal on every rank) accumulate across the passes of
+    one run; :meth:`begin_run` resets them, so read :attr:`overflow`
+    after the run."""
+
+    reconstructs = False
+
+    def __init__(self, group, local: PassBackend, capacity: int,
+                 batch: int = 1024, taper_wire: bool = True):
+        self.group = group
+        self.local = local
+        self.capacity = capacity
+        self.batch = batch
+        self.taper_wire = taper_wire
+        self.overflow: Optional[torch.Tensor] = None
+
+    def begin_run(self) -> None:
+        self.overflow = None
+
+    def rank(self, digit, n_bins, *, batch_hint=None, carry_in=None,
+             bin_start=None, engine=None, counts=None):
+        raise NotImplementedError(
+            "the distributed pass fuses rank and placement; use "
+            "lsd_pass_pairs")
+
+    def lsd_pass_pairs(self, u, payloads, dp, counts=None):
+        from repro_torch.core.distributed import _distributed_pass
+
+        out, ov = _distributed_pass(
+            u, dp.shift, dp.bits, self.group, self.capacity, self.batch,
+            self.taper_wire, payloads=payloads, engine=dp.engine,
+            backend=self.local)
+        self.overflow = ov if self.overflow is None else self.overflow | ov
+        return out
 
 
 class PlanExecutor:
@@ -282,7 +355,10 @@ class PlanExecutor:
 
         ``encode`` (here and on every ``run*`` mode) is an order-preserving
         transform applied to ``keys`` inside the run, so raw columns enter
-        and pass 0 extracts digits from the encoded stream."""
+        and pass 0 extracts digits from the encoded stream.  A backend
+        that does not reconstruct returns the key stream of its last exact
+        pass."""
+        self.backend.begin_run()
         u = _as_key_stream(keys, encode)
         if u.shape[0] == 0 or not plan.passes:
             # empty input, or the p=0 identity plan
@@ -296,6 +372,12 @@ class PlanExecutor:
                     self._sync(u)
         last = plan.passes[-1]
         with self._pass_span(pass_stats, len(plan.passes) - 1, last):
+            if not self.backend.reconstructs:
+                out, = self.backend.lsd_pass_pairs(u, (), last,
+                                                   pass_counts[-1])
+                if pass_stats is not None:
+                    self._sync(out)
+                return out
             rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
             if last.shift:
                 # compressed entries: only the trailing bits travel; the
@@ -321,6 +403,7 @@ class PlanExecutor:
         order."""
         single = not isinstance(values, tuple)
         payloads = (values,) if single else tuple(values)
+        self.backend.begin_run()
         u = _as_key_stream(keys, encode)
         if u.shape[0] == 0 or not plan.passes:
             return (u if encode is not None else keys), values
@@ -334,6 +417,12 @@ class PlanExecutor:
                     self._sync(u, *payloads)
         last = plan.passes[-1]
         with self._pass_span(pass_stats, len(plan.passes) - 1, last):
+            if not self.backend.reconstructs:
+                keys_out, *payloads = self.backend.lsd_pass_pairs(
+                    u, tuple(payloads), last, pass_counts[-1])
+                if pass_stats is not None:
+                    self._sync(keys_out, *payloads)
+                return keys_out, (payloads[0] if single else tuple(payloads))
             rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
             if last.shift:
                 trailing, *payloads = self.backend.scatter(
@@ -352,6 +441,7 @@ class PlanExecutor:
                     encode=None) -> torch.Tensor:
         """Stable int32 permutation with ``keys[perm]`` sorted: every pass
         is a payload-carrying LSD pass (the permutation is the payload)."""
+        self.backend.begin_run()
         u = _as_key_stream(keys, encode)
         n = u.shape[0]
         idx = torch.arange(n, dtype=torch.int32, device=u.device)

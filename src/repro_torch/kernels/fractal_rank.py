@@ -48,6 +48,7 @@ __all__ = [
     "lookback_tiles",
     "onehot_tile_len",
     "scatter_table_entries",
+    "scatter_table_fits",
     "uses_lookback",
 ]
 
@@ -125,6 +126,12 @@ def scatter_table_entries(n: int, n_bins: int) -> int:
     :data:`LOOKBACK_MAX_BINS` bins, where it carries by look-back."""
     return (0 if uses_lookback(n_bins)
             else lookback_tiles(n, SCATTER_TILE) * n_bins)
+
+
+def scatter_table_fits(n: int, n_bins: int) -> bool:
+    """Whether K3 takes ``n`` keys over ``n_bins`` bins: its count table
+    stays within :data:`TABLE_CAP` entries (at 2**16 bins, n <= 2**25)."""
+    return scatter_table_entries(n, n_bins) <= TABLE_CAP
 
 
 def _check_table(tiles: int, n_bins: int) -> None:

@@ -226,12 +226,12 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     ``pos``: int (or 0-d tensor) — the current position; the new K/V are
     written at ``pos`` clamped into the cache, as ``dynamic_update_slice``
     clamps.  The caches are updated in place (the reference returns new
-    arrays) and returned.  Sequence-sharded caches (``kv_seq_axis``) need
-    a device mesh, which the port does not have yet."""
+    arrays) and returned.  Sequence-sharded caches (``kv_seq_axis``) are
+    not ported yet."""
     if kv_seq_axis is not None:
         raise NotImplementedError(
-            "split-KV decode over a sequence-sharded cache needs a device "
-            "mesh (ROADMAP queue 1: distributed)")
+            "split-KV decode over a sequence-sharded cache is not ported "
+            "yet (ROADMAP queue 1: the LM scaffold's sharding)")
     pos = int(pos)
     hd = cfg.resolved_head_dim
     B = x.shape[0]

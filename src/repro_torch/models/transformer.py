@@ -171,8 +171,8 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
     _check_supported(cfg)
     if kv_shards != 1:
         raise NotImplementedError(
-            "sequence-sharded decode caches need a device mesh (ROADMAP "
-            "queue 1: distributed)")
+            "sequence-sharded decode caches are not ported yet (ROADMAP "
+            "queue 1: the LM scaffold's sharding)")
     device = resolve_device(device)
     shape = (B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),

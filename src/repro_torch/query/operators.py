@@ -103,11 +103,10 @@ def _check_placement(stream, placement, plans) -> None:
     from repro_torch.stream.chunks import PlacementStore
 
     if placement is not None and not isinstance(placement, PlacementStore):
-        raise NotImplementedError(
+        raise TypeError(
             f"placement {type(placement).__name__} is not a "
-            "repro_torch.stream.PlacementStore; the device placement "
-            "(DeviceShardStore) waits for ROADMAP queue 1 \"Distributed "
-            "backend and device store\"")
+            "repro_torch.stream.PlacementStore (RunStore on disk, or "
+            "DeviceShardStore over a process group)")
 
 
 def _check_in_memory(table, op: str) -> None:

@@ -13,7 +13,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.executor import _SIGNED_VIEW
+from repro_torch.core.executor import _signed
 from repro_torch.core.fractal_sort import resolve_device
 
 __all__ = ["Table"]
@@ -22,10 +22,7 @@ __all__ = ["Table"]
 def _gather(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``col[idx]`` along dim 0; torch gathers no uint16/uint32/uint64
     tensor, so those move their bits as the signed type of their width."""
-    signed = _SIGNED_VIEW.get(col.dtype)
-    if signed is None:
-        return col.index_select(0, idx)
-    return col.view(signed).index_select(0, idx).view(col.dtype)
+    return _signed(col).index_select(0, idx).view(col.dtype)
 
 
 class Table:

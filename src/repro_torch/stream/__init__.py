@@ -1,13 +1,16 @@
 """Out-of-core streaming sort subsystem: histogram-partitioned external
 sort over chunk streams, on the card under a byte budget.
 
-Port of ``repro.stream`` (all of it but the device placement
-``DeviceShardStore``, which waits for the distributed backend):
+Port of ``repro.stream``:
 
 * :mod:`~repro_torch.stream.chunks` — the :class:`ChunkSource` protocol,
   the :class:`MemoryBudget` that sizes chunks from a byte cap and counts
   host and device copies, and the placement stores (:class:`RunStore`:
   fragments on disk, distributed and sorted on the work device);
+* :mod:`~repro_torch.stream.device_store` — :class:`DeviceShardStore`,
+  the placement over a ``torch.distributed`` group (fragments routed to
+  their owner ranks by collectives, partition sorts through the
+  distributed backend);
 * :mod:`~repro_torch.stream.partition` — one streamed histogram pass (K1
   with a carried ``init`` on the card), then greedy merging of adjacent
   bins into budget-fitting partitions;
@@ -32,6 +35,7 @@ from repro_torch.stream.chunks import (
     RunStore,
     temp_store,
 )
+from repro_torch.stream.device_store import DeviceShardStore
 from repro_torch.stream.partition import (
     KeyPartition,
     partition_bins,

@@ -67,6 +67,7 @@ __all__ = [
     "RunStore",
     "distribute_bytes",
     "partition_sort_bytes",
+    "row_cost_bytes",
     "temp_store",
 ]
 
@@ -114,6 +115,21 @@ def partition_sort_bytes(padded_rows: int, rows: int, num_words: int,
     (``payload_bytes`` each), and the int64 row ids of the gather (8)."""
     return (padded_rows * (12 * num_words + 36)
             + rows * (8 * num_words + 4 * payload_bytes + 8))
+
+
+def row_cost_bytes(num_words: int, payload_bytes: int = 0) -> int:
+    """Per-row byte cost the budget's ``rows()`` divides by, modeling the
+    partition-sort moment, the subsystem's residency peak
+    (:func:`partition_sort_bytes`: host and device copies at once).  A
+    partition holds at most ``budget.rows(cost) = limit / (2 cost)`` rows
+    and pads to under twice that, so the moment holds at most ``2 rows``
+    padded rows of ``pad`` bytes and ``rows`` real rows of ``real``
+    bytes: the cost ``pad + real / 2`` keeps it within the limit.  A
+    distribute slice of as many rows holds less
+    (:func:`distribute_bytes`)."""
+    pad = partition_sort_bytes(1, 0, num_words, payload_bytes)
+    real = partition_sort_bytes(0, 1, num_words, payload_bytes)
+    return pad + -(-real // 2)
 
 
 def distribute_bytes(rows: int, slice_rows: int, num_words: int,
@@ -373,6 +389,18 @@ class PlacementStore:
 
     def close(self) -> None:
         raise NotImplementedError
+
+    def row_cost_bytes(self, num_words: int, payload_bytes: int = 0) -> int:
+        """Per-row byte cost the external loop sizes this store's
+        partitions by (:func:`row_cost_bytes`, the work-device partition
+        sort of :meth:`sort_rows`)."""
+        return row_cost_bytes(num_words, payload_bytes)
+
+    def distribute_bytes(self, rows: int, slice_rows: int, num_words: int,
+                         payload_bytes: int) -> int:
+        """Bytes one :meth:`distribute` of a ``rows``-row chunk holds beside
+        the chunk (:func:`distribute_bytes`)."""
+        return distribute_bytes(rows, slice_rows, num_words, payload_bytes)
 
     # -- the log channel ------------------------------------------------------
 

@@ -73,8 +73,7 @@ from repro_torch.stream.chunks import (
     _row_bytes,
     _copy_of,
     _work_tensor,
-    distribute_bytes,
-    partition_sort_bytes,
+    row_cost_bytes,
     temp_store,
 )
 from repro_torch.stream.partition import (
@@ -90,21 +89,6 @@ __all__ = [
     "row_cost_bytes",
     "stream_sorted_words",
 ]
-
-
-def row_cost_bytes(num_words: int, payload_bytes: int = 0) -> int:
-    """Per-row byte cost the budget's ``rows()`` divides by, modeling the
-    partition-sort moment, the subsystem's residency peak
-    (:func:`~repro_torch.stream.chunks.partition_sort_bytes`: host and
-    device copies at once).  A partition holds at most ``budget.rows(cost)
-    = limit / (2 cost)`` rows and pads to under twice that, so the moment
-    holds at most ``2 rows`` padded rows of ``pad`` bytes and ``rows``
-    real rows of ``real`` bytes: the cost ``pad + real / 2`` keeps it
-    within the limit.  A distribute slice of as many rows holds less
-    (:func:`~repro_torch.stream.chunks.distribute_bytes`)."""
-    pad = partition_sort_bytes(1, 0, num_words, payload_bytes)
-    real = partition_sort_bytes(0, 1, num_words, payload_bytes)
-    return pad + -(-real // 2)
 
 
 def _emitted(words: np.ndarray, payloads: tuple) -> None:
@@ -386,8 +370,9 @@ def stream_sorted_words(
                         _work_tensor(words[lo:end], device), bits, hi - w, w))
 
                 with budget.hold(words, *payloads), budget.hold(Bytes(
-                        distribute_bytes(rows, step, int(words.shape[1]),
-                                         _row_bytes(payloads)))):
+                        store.distribute_bytes(rows, step,
+                                               int(words.shape[1]),
+                                               _row_bytes(payloads)))):
                     # the store splits the chunk budget_rows rows at a time
                     for i, ids in enumerate(store.distribute(
                             words, payloads, pid_of, len(partitions),
@@ -753,7 +738,7 @@ def _external(source, p, budget, store, executor, partition_bits, journal,
     store = temp_store() if store is None else store
     try:
         chunks_fn, unsigned_cell = _key_chunks_fn(source, with_rowids)
-        row_bytes = row_cost_bytes(1, 8 if with_rowids else 0)
+        row_bytes = store.row_cost_bytes(1, 8 if with_rowids else 0)
         for words, payloads in stream_sorted_words(
                 chunks_fn, p, budget, store, row_bytes, executor=executor,
                 partition_bits=partition_bits, journal=journal,

@@ -161,19 +161,21 @@ def _work_device(st: StreamTable, device) -> torch.device:
     return resolve_device(st.device if device is None else device)
 
 
-def _encoded_stream(st: StreamTable, by, codecs, device: torch.device):
+def _encoded_stream(st: StreamTable, by, codecs, device: torch.device,
+                    store: PlacementStore):
     """(codec, column names, chunks_fn, row_bytes): the (words, payloads)
     adapter the external core consumes — key columns encode on the work
     device through the same order-preserving codecs as the in-memory
     operators (codec resolved once, on the first chunk), and *every*
-    column rides the spill as a payload."""
+    column rides the spill as a payload; ``row_bytes`` is ``store``'s row
+    cost."""
     first = st._peek()
     if first is None:
         raise ValueError("cannot sort an empty StreamTable")
     by_norm = _normalize_by(by)
     codec = _composite_codec(first, by_norm, codecs)
     names = first.column_names
-    row_bytes = row_cost_bytes(codec.num_words, _table_row_bytes(first))
+    row_bytes = store.row_cost_bytes(codec.num_words, _table_row_bytes(first))
 
     def chunks_fn():
         for t in st.chunk_tables():
@@ -195,13 +197,13 @@ def stream_order_by(st: StreamTable, by, codecs=None,
     ``st.budget``.  ``placement`` holds the *working* partition fragments
     (disk by default)."""
     device = _work_device(st, device)
-    codec, names, chunks_fn, row_bytes = _encoded_stream(st, by, codecs,
-                                                         device)
     own_work = placement is None
     work = temp_store() if placement is None else placement
     out_store = RunStore() if store is None else store
     run_ids = []
     try:
+        codec, names, chunks_fn, row_bytes = _encoded_stream(
+            st, by, codecs, device, work)
         for _, payloads in stream_sorted_words(
                 chunks_fn, codec.bits, st.budget, work, row_bytes,
                 device=device, backend=backend):
@@ -237,11 +239,11 @@ def stream_top_k(st: StreamTable, by, k: int, codecs=None,
             raise ValueError("cannot top_k an empty StreamTable")
         return _host_table(first.head(0))
     device = _work_device(st, device)
-    codec, names, chunks_fn, row_bytes = _encoded_stream(st, by, codecs,
-                                                         device)
     own = store is None
     work = temp_store() if store is None else store
     try:
+        codec, names, chunks_fn, row_bytes = _encoded_stream(
+            st, by, codecs, device, work)
         pieces = [payloads for _, payloads in stream_sorted_words(
             chunks_fn, codec.bits, st.budget, work, row_bytes, limit_rows=k,
             device=device, backend=backend)]
@@ -275,13 +277,13 @@ def stream_group_by(st: StreamTable, by,
     host row per group, key-sorted."""
     device = _work_device(st, device)
     by_norm = _normalize_by(by)
-    codec, names, chunks_fn, row_bytes = _encoded_stream(st, by_norm, codecs,
-                                                         device)
     acc: Optional[dict] = None
     prev_last_code: Optional[np.ndarray] = None
     own_work = placement is None
     work = temp_store() if placement is None else placement
     try:
+        codec, names, chunks_fn, row_bytes = _encoded_stream(
+            st, by_norm, codecs, device, work)
         for words, payloads in stream_sorted_words(
                 chunks_fn, codec.bits, st.budget, work, row_bytes,
                 device=device, backend=backend):

@@ -711,3 +711,128 @@ def test_external_argsort_on_card_worker_count_invariant(rng, cuda_device,
     assert torch.equal(one, two)
     assert torch.equal(one, torch.from_numpy(np.argsort(keys,
                                                         kind="stable")))
+
+
+# --- the distributed backend and the device store on one NCCL rank ------------
+
+
+@pytest.fixture
+def nccl_group(cuda_device, tmp_path):
+    """A one-rank NCCL group in this process (the card's machine has one
+    card, and NCCL refuses two ranks on one device)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp_path / "nccl"), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_sort_on_one_nccl_rank_matches_in_memory(rng, cuda_device,
+                                                             nccl_group):
+    from repro_torch.core import (distributed_fractal_argsort,
+                                  distributed_fractal_sort,
+                                  make_distributed_sort_pairs)
+
+    n = 1 << 20
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                            .astype(np.uint32)).to(cuda_device)
+    ops.reset_launch_counts()
+    got, ov = distributed_fractal_sort(keys, None, 32)
+    counts = ops.launch_counts()
+    assert not bool(ov)
+    assert torch.equal(got.view(torch.int32),
+                       fractal_sort(keys, 32).view(torch.int32))
+    assert counts["fractal_histogram"] > 0 and counts["fractal_rank_kernel"] > 0
+    perm, ov = distributed_fractal_argsort(keys, None, 32)
+    assert not bool(ov) and torch.equal(perm, fractal_argsort(keys, 32))
+    pay = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(
+        cuda_device)
+    sk, sv, ov = make_distributed_sort_pairs(None, 32)(keys, pay)
+    assert not bool(ov)
+    assert torch.equal(sk.view(torch.int32), got.view(torch.int32))
+    assert torch.equal(sv, pay[perm.long()])
+    with pytest.raises(ValueError, match="a cpu tensor"):
+        distributed_fractal_sort(keys.cpu(), None, 32)
+
+
+@pytest.mark.parametrize("n,engine", [((1 << 25), "scatter"),
+                                      ((1 << 25) + 1, "onehot")])
+def test_engine_rule_at_2_16_bins_across_the_table_cap(rng, cuda_device, n,
+                                                       engine):
+    """A "scatter" hint at 2**16 bins runs K3 while its count table fits
+    TABLE_CAP (n <= 2**25) and K2 above; the ranks are the same."""
+    n_bins = 1 << 16
+    assert rank_mod.scatter_table_fits(n, n_bins) == (engine == "scatter")
+    d = torch.from_numpy(rng.integers(0, n_bins, n).astype(np.int32)).to(
+        cuda_device)
+    start = torch.from_numpy(rng.integers(0, 1 << 20, n_bins).astype(
+        np.int32)).to(cuda_device)
+    ops.reset_launch_counts()
+    rank, _, _ = CudaBackend().rank(d, n_bins, bin_start=start,
+                                    engine="scatter")
+    counts = ops.launch_counts()
+    want = {"scatter": "fractal_rank_scatter_kernel",
+            "onehot": "fractal_rank_kernel"}[engine]
+    other = ({"fractal_rank_scatter_kernel", "fractal_rank_kernel"}
+             - {want}).pop()
+    assert counts[want] == 1 and counts[other] == 0, counts
+    assert torch.equal(rank, ref.rank_ref(d, start, n_bins))
+    assert torch.equal(rank, fractal_rank_kernel(d, start, n_bins))
+
+
+@pytest.mark.parametrize("bits,sort_bits,num_words,payload", [
+    (32, 32, 1, 0), (32, 24, 1, 8), (64, 56, 2, 20)])
+def test_device_store_row_cost_covers_the_measured_partition_sort(
+        rng, cuda_device, nccl_group, bits, sort_bits, num_words, payload):
+    """One DeviceShardStore partition sort at the most rows its row cost
+    admits, padded to nearly twice that: the card's allocation peak stays
+    within the store's model, and the model within the budget."""
+    from repro_torch.stream import DeviceShardStore, MemoryBudget
+    from repro_torch.stream.device_store import shard_sort_bytes
+
+    budget = MemoryBudget(64 << 20)
+    store = DeviceShardStore()
+    m = budget.rows(store.row_cost_bytes(num_words, payload))
+    L = 1 << (m - 1).bit_length()
+    words = rng.integers(0, 1 << 32, (m, num_words), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[:, 0] &= np.uint32((1 << (32 - (bits - sort_bits))) - 1)
+    pays = ((rng.integers(0, 1 << 62, m, dtype=np.int64),) if payload == 8
+            else (rng.standard_normal(m), rng.integers(0, 9, m)
+                  .astype(np.int32), rng.integers(0, 9, m).astype(np.int64))
+            if payload else ())
+    store.sort_rows(words, pays, bits, sort_bits, budget)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, gathered = store.sort_rows(words, pays, bits, sort_bits, budget)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    model = shard_sort_bytes(L, m, num_words, payload)
+    assert measured <= model, (measured, model)
+    assert model <= budget.limit_bytes and budget.peak_bytes <= model
+    order = np.lexsort(tuple(words[:, j] for j in
+                             range(num_words - 1, -1, -1)))
+    np.testing.assert_array_equal(got, words[order])
+    for g, p in zip(gathered, pays):
+        np.testing.assert_array_equal(g, p[order])
+
+
+def test_external_sort_through_the_device_store_on_card(rng, cuda_device,
+                                                        nccl_group):
+    from repro_torch import stream as ts
+
+    keys = _stream_keys(rng, 300_000, 32)
+    budget = ts.MemoryBudget(1 << 20)
+    store = ts.DeviceShardStore()
+    ops.reset_launch_counts()
+    got = torch.cat(list(ts.external_sort(
+        ts.ArraySource(keys, budget.rows(store.row_cost_bytes(1))), 32,
+        budget, store=store)))
+    np.testing.assert_array_equal(got.numpy(), np.sort(keys))
+    counts = ops.launch_counts()
+    assert counts["fractal_histogram"] > 0 and counts["fractal_rank_kernel"] > 0
+    assert store.device_log and budget.peak_bytes <= budget.limit_bytes

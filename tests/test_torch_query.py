@@ -636,8 +636,8 @@ def test_dispatch_counts_land_in_the_metrics_registry():
 def test_stream_inputs_and_placement_name_the_stream_item(rng):
     """A placement on an in-memory Table is refused (ValueError, as the
     reference refuses it); inputs that are neither a Table nor a
-    StreamTable are a TypeError; a StreamTable's placement that is not a
-    PlacementStore names the missing device store's ROADMAP item."""
+    StreamTable are a TypeError; so is a StreamTable's placement that is
+    not a PlacementStore (the message names both stores)."""
     from repro_torch.stream import MemoryBudget, StreamTable
 
     t = tq.Table({"k": np.arange(8, dtype=np.int32)}, device="cpu")
@@ -652,8 +652,8 @@ def test_stream_inputs_and_placement_name_the_stream_item(rng):
         with pytest.raises(TypeError):
             call()
     st = StreamTable.from_table(t, MemoryBudget(1024), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Distributed backend and device store"):
+    with pytest.raises(TypeError,
+                       match="is not a repro_torch.stream.PlacementStore"):
         tq.top_k(st, "k", 3, placement=object())
 
 

@@ -553,8 +553,8 @@ def test_stream_operators_refuse_what_the_reference_refuses(rng):
         tq.distinct(st)
     with pytest.raises(ValueError, match="pinned plans"):
         tq.order_by(st, "k", plans=())
-    with pytest.raises(NotImplementedError,
-                       match="Distributed backend and device store"):
+    with pytest.raises(TypeError,
+                       match="is not a repro_torch.stream.PlacementStore"):
         tq.order_by(st, "k", placement=object())
     with ts.RunStore() as store:  # any PlacementStore places fragments
         got = tq.order_by(st, "k", placement=store).to_table()

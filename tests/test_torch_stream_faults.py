@@ -19,6 +19,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import stream as rs
 from repro.core import faults as rfaults
@@ -93,12 +94,16 @@ def test_fault_spec_fires():
 
 
 def test_registered_sites_match_the_reference_disk_store():
+    """The disk store's and the device store's sites, the same names in
+    both packages."""
     ours = set(faults.registered_sites())
-    theirs = {s for s in rfaults.registered_sites()
-              if s.startswith("run_store.")}
-    want = {f"run_store.{op}" for op in
-            ("put", "get", "delete", "distribute", "sort_rows")}
-    assert want <= ours and want <= theirs
+    for prefix in ("run_store.", "device_store."):
+        want = {f"{prefix}{op}" for op in
+                ("put", "get", "delete", "distribute", "sort_rows")}
+        theirs = {s for s in rfaults.registered_sites()
+                  if s.startswith(prefix)}
+        assert want <= ours and want == theirs
+        assert {s for s in ours if s.startswith(prefix)} == theirs
 
 
 def test_env_plan_is_read_once(monkeypatch):
@@ -409,6 +414,80 @@ def test_chaos_matrix_disk(site, kind, seed):
     # bit-exact
     assert (type(got[0]).__name__ if got[0] else None,
             got[1]) == (type(want[0]).__name__ if want[0] else None, want[1])
+
+
+_DEVICE_SITES = tuple(s for s in faults.registered_sites()
+                      if s.startswith("device_store."))
+
+
+@pytest.fixture(scope="module")
+def gloo_group(tmp_path_factory):
+    """A one-rank gloo group in this process, for the device store."""
+    dist.init_process_group(
+        "gloo", init_method="file://" + str(
+            tmp_path_factory.mktemp("gloo") / "store"), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _chaos_run_device(mod, inject, src_keys, site, kind, seed):
+    """(error or None, bit-exact, the injector) of one external sort on a
+    one-device ``DeviceShardStore`` under one seeded single fault."""
+    expect = np.sort(src_keys, kind="stable")
+    budget = mod.MemoryBudget(16 * 1024)
+    src = mod.ArraySource(src_keys, budget.rows(12))
+    kw = {"device": "cpu"} if mod is ts else {}
+    raised, out = None, None
+    plan_cls = rfaults.FaultPlan if mod is rs else FaultPlan
+    with inject(plan_cls.single(site, kind, seed=seed)) as inj:
+        store = mod.DeviceShardStore(**kw)
+        try:
+            out = np.concatenate([_np(c) for c in mod.external_sort(
+                src, 16, budget, store=store, **kw)])
+        except (StoreError, rfaults.StoreError) as e:
+            raised = e
+    return raised, out is not None and np.array_equal(out, expect), inj
+
+
+@pytest.mark.parametrize("seed", _SEEDS)
+@pytest.mark.parametrize("kind", _KINDS)
+@pytest.mark.parametrize("site", _DEVICE_SITES)
+def test_chaos_matrix_device(gloo_group, site, kind, seed):
+    keys = _chaos_keys()
+    with hard_timeout(120):
+        got = _chaos_run_device(ts, faults.inject, keys, site, kind, seed)
+        want = _chaos_run_device(rs, rfaults.inject, keys, site, kind, seed)
+    _assert_chaos_contract(site, kind, got[2], got[0], got[1],
+                           (StoreError, CorruptFragmentError))
+    _assert_chaos_contract(site, kind, want[2], want[0], want[1],
+                           (rfaults.StoreError, rfaults.CorruptFragmentError))
+    assert (type(got[0]).__name__ if got[0] else None,
+            got[1]) == (type(want[0]).__name__ if want[0] else None, want[1])
+    if site == "device_store.sort_rows" and kind == "permanent":
+        assert got[0] is None and got[1], (
+            "a permanent mid-sort device fault must fail over to disk and "
+            "still emit bit-exact output")
+
+
+def test_device_store_refuses_a_missing_group_or_another_device(
+        gloo_group, monkeypatch):
+    store = ts.DeviceShardStore(device="cpu")
+    assert (store.num_devices, store.site_prefix) == (1, "device_store")
+    assert store.failover_to_disk and not store.supports_concurrent_sorts
+    assert not store.supports_batched_sorts
+    assert store.owner(3, 4) == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ts.DeviceShardStore()
+    words = np.arange(8, dtype=np.uint32).reshape(-1, 1)
+    with pytest.raises(ValueError, match="the store works on cpu"):
+        store.sort_rows(words, (), 32, 32, ts.MemoryBudget(1 << 20),
+                        device="meta")
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    with pytest.raises(RuntimeError, match="no torch.distributed"):
+        ts.DeviceShardStore(device="cpu")
 
 
 def test_chaos_stream_table_order_by():
