@@ -22,10 +22,15 @@ Phases, each fatal on failure:
    (tolerance 0: integer outputs), at n in {1, 1000, 2**20 + 37} and
    n_bins in {16, 256, 2**16}; K2 and K3 also over n in {1, 1000, 4095,
    4096, 4097, 8191, 8192, 8193, 2**20 + 37} (both look-back tiles are
-   8192 keys) x n_bins in {1, 2, 16, 256, 257, 2**16} (both sides of
-   their switch between the look-back sweep and the table path) on
-   uniform, zipf(1.2) and one-bin digits with -1 and n_bins pads, K3 also
-   at 2**16 bins over n = 2**22 and on an unaligned stream; K1 over n in
+   8192 keys) x n_bins in {1, 2, 16, 256, 257, 300, 511, 4096, 2**16}
+   (both sides of their switch between the look-back sweep and the
+   two-level or table path, and the edges of K2's split of a digit into
+   its high and low bytes: 2, 2, 2, 16 and 256 high bins) on uniform,
+   zipf(1.2) and one-bin digits with -1 and n_bins pads and, above 256
+   bins, keys in [n_bins, 256 * ceil(n_bins / 256)), from non-dense bin
+   starts, K2 above 256 bins both with the digit's counts given and
+   without, K3 also at 2**16 bins over n = 2**22 and on an unaligned
+   stream; K1 over n in
    {1, 31, 4095, 4097, 2**20 + 37} x n_bins in {1, 2, 15, 16, 17, 32, 33,
    256, 2**14, 2**14 + 1, 2**16} on streams 0-3 elements off a 16-byte
    boundary, with pads, with and without init; K1's one-sweep entry
@@ -48,8 +53,10 @@ Phases, each fatal on failure:
    plain versions and one PyTorch library call (each timed one call at a
    time between two CUDA events, the wrapper's host time included), a
    profiler check that one K2 call at 16 bins runs one kernel of its own
-   (no count walk, no scan; logged as not checked where the profiler
-   traces no device kernel), and the end-to-end sort time beside
+   (no count walk, no scan) and that one at 2**16 bins (the keys' high
+   half, its counts given) runs the two-level path's four kernels and
+   nothing else (each logged as not checked where the profiler traces no
+   device kernel), and the end-to-end sort time beside
    ``torch.sort``; K1's one sweep over the p = 32 plan's 8 digits; K2
    at 256 bins on a log line (the yardstick of K3 there); the log lines
    of the redesigned K1, K2 and K3 also name their first versions'
@@ -143,10 +150,18 @@ then, on a one-rank process group (NCCL; a file rendezvous, no network):
    payload, each bit-exact against ``torch.sort`` / a stable
    ``torch.argsort`` with no bucket overflow; fails unless K1 and K2
    launched on this path (and K3 where the engine rule sends a 16-bit
-   field there); K1 and K2 at its shapes (2**16 bins, one destination)
-   against their plain versions; the sorts' times beside the in-memory
-   ``fractal_sort`` and ``torch.sort`` (``--profile``: the device time of
-   one p = 32 sort by kernel);
+   field there); K1 and K2 at its shapes (2**16 bins, with and without
+   the counts; one destination) against their plain versions; K2's time
+   at the pass's 2**16 bins with the counts given, as the pass calls it
+   (beside its plain version, a stable ``torch.sort`` of the digit and
+   the bare call; the table-walk version's time on the log line only),
+   and at 2**25 keys beside K3; a profiler check that that K2 call runs
+   only the two-level path's kernels (prep, two look-back levels,
+   unstage: no table walk, no torch op; all four are required in phase
+   6, where the profiler is not on a process group; logged as not
+   checked where the profiler traces no device kernel); the sorts'
+   times beside the in-memory ``fractal_sort`` and ``torch.sort``
+   (``--profile``: the device time of one p = 32 sort by kernel);
 16. the device store: ``external_sort`` and ``external_argsort`` of
    phase 13's uniform host keys under the same 64 MiB budget with
    ``store=DeviceShardStore()``, sized by the store's row cost, and the
@@ -202,6 +217,13 @@ K5_ROUTE = {"float32": (3, TF32_FLOPS, "3xTF32 on the TF32 tensor cores"),
 FIRST_VERSION_MS = {"fractal_histogram": 0.674, "fractal_rank_kernel": 1.122,
                     "fractal_rank_scatter_kernel": 4.778, "k5_float32": 1.565,
                     "k5_bfloat16": 1.580}
+# K2 at 2**27 keys and 2**16 bins before its two-level path (count walk,
+# scan and rank walk over a per-tile table), from an earlier run of this
+# script (PERF.md); printed on phase 15's log line only
+TABLE_WALK_MS = 23.505
+# the kernels of one K2 call above 256 bins
+K2_WIDE_KERNELS = ("wide_prep_kernel", "lookback_rank_kernel",
+                   "wide_unstage_kernel")
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048  # prompts and tokens a prompt
 # float64 sums of the query phases against the oracle's: they add in
 # another order, and this tolerance absorbs only that
@@ -318,6 +340,30 @@ def kernel_names(fn, tries: int = 3):
             return names
         log(f"[profiler] try {i + 1} of {tries} traced no device kernel")
     return None
+
+
+def check_k2_wide(fn, what: str, exact: bool = True) -> None:
+    """Fail unless one warm call of ``fn``, K2 above 256 bins, runs only
+    the two-level path's kernels: no table walk, no torch op.  ``exact``:
+    also all four of them (prep, two look-back levels, unstage) once each.
+    On a process group the profiler has traced no kernel of a call, or
+    dropped the last one, so there the trace is held to the path's
+    kernels only.  Where the profiler traces no device kernel, it is
+    logged as not checked."""
+    names = kernel_names(fn)
+    if names is None:
+        log(f"[kernels] one K2 call at {what}: not checked, the profiler "
+            f"traced no device kernel")
+        return
+    log(f"[kernels] one K2 call at {what} runs {json.dumps(names)}")
+    found = [sum(w in k for k in names) for w in K2_WIDE_KERNELS]
+    if sum(found) != len(names) or any(
+            f > want for f, want in zip(found, (1, 2, 1))):
+        raise AssertionError(f"K2 at {what} ran {names}, expected only "
+                             f"{list(K2_WIDE_KERNELS)} x [1, 2, 1]")
+    if exact and found != [1, 2, 1]:
+        raise AssertionError(f"K2 at {what} ran {names}, expected "
+                             f"{list(K2_WIDE_KERNELS)} x [1, 2, 1]")
 
 
 def sass_hmma_counts(lib: Path) -> dict:
@@ -1387,38 +1433,50 @@ def distributed_phases(args, dev, card: str, path_counts: dict) -> tuple:
         agree("fractal_rank_kernel", f"n=2**{args.log2n}, 2**16 bins",
               fractal_rank_kernel(field, start, 1 << 16),
               ref.rank_ref(field, start, 1 << 16))
+        agree("fractal_rank_kernel",
+              f"n=2**{args.log2n}, 2**16 bins, counts given",
+              fractal_rank_kernel(field, start, 1 << 16, counts=c),
+              ref.rank_ref(field, start, 1 << 16))
         dest = torch.zeros_like(field)
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
         agree("fractal_rank_kernel", f"n=2**{args.log2n}, 1 destination",
               fractal_rank_kernel(dest, zero, 1), ref.rank_ref(dest, zero, 1))
-        # the engine rule's two sides at 2**16 bins: K2 at the path's n
-        # beside its plain version and the library's stable sort, and K2
-        # and K3 at the most keys K3's table admits (launches here count
-        # on no path)
-        bytes_at = lambda m: 8 * m + 4 * (1 << 16)  # digits in, ranks out
+        # the engine rule's two sides at 2**16 bins: K2 at the path's n as
+        # the pass calls it (the counts given) beside its plain version and
+        # the library's stable sort, and K2 and K3 at the most keys K3's
+        # table admits (launches here count on no path)
+        # digits and counts in, ranks out, the bin starts in
+        bytes_at = lambda m: 8 * m + 2 * 4 * (1 << 16)
         n_k3 = min(n, 1 << 25)
         d_k3 = field[:n_k3]
-        s_k3 = exclusive_cumsum(fractal_histogram(d_k3, 1 << 16))
-        wide = {"shape": f"n=2**{args.log2n}, 2**16 bins (the distributed "
-                         "pass's local rank)",
-                "ms": cuda_ms(
-                    lambda: fractal_rank_kernel(field, start, 1 << 16)),
+        c_k3 = fractal_histogram(d_k3, 1 << 16)
+        s_k3 = exclusive_cumsum(c_k3)
+        k2_wide = lambda: fractal_rank_kernel(field, start, 1 << 16, counts=c)
+        wide = {"shape": f"n=2**{args.log2n}, 2**16 bins, counts given (the "
+                         "distributed pass's local rank)",
+                "ms": cuda_ms(k2_wide),
                 "plain_ms": cuda_ms(
                     lambda: ref.rank_ref(field, start, 1 << 16), 1, 3),
                 "bound_ms": bytes_at(n) / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes",
                 "library_ms": cuda_ms(
                     lambda: torch.sort(field, stable=True))}
-        k2_cap = cuda_ms(lambda: fractal_rank_kernel(d_k3, s_k3, 1 << 16))
+        bare = cuda_ms(lambda: fractal_rank_kernel(field, start, 1 << 16))
+        k2_cap = cuda_ms(
+            lambda: fractal_rank_kernel(d_k3, s_k3, 1 << 16, counts=c_k3))
         k3_cap = cuda_ms(
             lambda: fractal_rank_scatter_kernel(d_k3, s_k3, 1 << 16))
         log(f"[time] fractal_rank_kernel at {wide['shape']}: "
             f"{wide['ms']:.3f} ms, bound {wide['bound_ms']:.3f} ms, plain "
             f"{wide['plain_ms']:.3f} ms, stable torch.sort "
-            f"{wide['library_ms']:.3f} ms; at n=2**{n_k3.bit_length() - 1}: "
+            f"{wide['library_ms']:.3f} ms, bare (K1 launched for the "
+            f"counts) {bare:.3f} ms; at n=2**{n_k3.bit_length() - 1}: "
             f"K2 {k2_cap:.3f} ms, K3 {k3_cap:.3f} ms, bound "
-            f"{bytes_at(n_k3) / HBM_BYTES_PER_S * 1e3:.3f} ms")
-        del field, c, start, dest, d_k3, s_k3
+            f"{bytes_at(n_k3) / HBM_BYTES_PER_S * 1e3:.3f} ms; earlier run: "
+            f"table walk {TABLE_WALK_MS} ms")
+        check_k2_wide(k2_wide, f"n=2**{args.log2n}, 2**16 bins, counts "
+                               f"given, on the process group", exact=False)
+        del field, c, start, dest, d_k3, c_k3, s_k3
 
         for p in (32, 16):
             keys = data[p, "uniform"]
@@ -1583,7 +1641,8 @@ def main() -> int:
     from repro_torch.kernels.fractal_histogram import (
         fractal_histogram, fractal_histogram_digits)
     from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
-                                                  fractal_rank_scatter_kernel)
+                                                  fractal_rank_scatter_kernel,
+                                                  wide_hi_bins)
     from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
 
     dev = torch.device("cuda")
@@ -1681,7 +1740,7 @@ def main() -> int:
     # edges, skew
     k2_cases = 0
     for n in (1, 1000, 4095, 4096, 4097, 8191, 8192, 8193, (1 << 20) + 37):
-        for n_bins in (1, 2, 16, 256, 257, 1 << 16):
+        for n_bins in (1, 2, 16, 256, 257, 300, 511, 4096, 1 << 16):
             for dist in ("uniform", "zipf", "one_bin"):
                 if dist == "uniform":
                     d = rng.integers(0, n_bins, n)
@@ -1692,6 +1751,10 @@ def main() -> int:
                 d = d.astype(np.int32)
                 d[rng.random(n) < 0.01] = -1
                 d[rng.random(n) < 0.01] = n_bins
+                # a high byte below K2's high bins, but no digit
+                past = 256 * wide_hi_bins(n_bins)
+                if n_bins > 256 and past > n_bins:
+                    d[rng.random(n) < 0.01] = rng.integers(n_bins, past)
                 keys = torch.from_numpy(d).to(dev)
                 start = torch.from_numpy(
                     rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(dev)
@@ -1699,12 +1762,19 @@ def main() -> int:
                 what = f"n={n} n_bins={n_bins} {dist}"
                 agree("fractal_rank_kernel",
                       fractal_rank_kernel(keys, start, n_bins), want, what)
+                if n_bins > 256:  # the counts a sort hands the wide path
+                    agree("fractal_rank_kernel",
+                          fractal_rank_kernel(
+                              keys, start, n_bins,
+                              counts=fractal_histogram(keys, n_bins)),
+                          want, what + " counts given")
                 agree("fractal_rank_scatter_kernel",
                       fractal_rank_scatter_kernel(keys, start, n_bins), want,
                       what)
                 k2_cases += 1
     log(f"[kernels] K2 and K3 bit-exact over {k2_cases} cases each (n x "
-        f"n_bins x uniform/zipf/one-bin, with pads)")
+        f"n_bins x uniform/zipf/one-bin, with pads; K2 above 256 bins with "
+        f"and without the counts)")
     # K3: its widest table (2**16 bins at n = 2**22) and an unaligned stream
     for n, n_bins, off in ((1 << 22, 1 << 16, 0), (50_001, 256, 1),
                            (50_001, 257, 3)):
@@ -1980,6 +2050,17 @@ def main() -> int:
         if len(own) != 1 or "lookback_rank_kernel" not in own[0]:
             raise AssertionError(f"K2 at 16 bins ran {own}, expected the "
                                  f"one look-back kernel")
+    # K2 at 2**16 bins (the keys' high half, with its counts, as the
+    # distributed pass calls it) runs the two-level path's kernels only
+    dhi = (kbits >> 16) & 0xFFFF
+    chi = fractal_histogram(dhi, 1 << 16)
+    shi = exclusive_cumsum(chi)
+    agree("fractal_rank_kernel",
+          fractal_rank_kernel(dhi, shi, 1 << 16, counts=chi),
+          ref.rank_ref(dhi, shi, 1 << 16), f"n=2**{args.log2n}, 2**16 bins")
+    check_k2_wide(lambda: fractal_rank_kernel(dhi, shi, 1 << 16, counts=chi),
+                  f"n=2**{args.log2n}, 2**16 bins, counts given")
+    del dhi, chi, shi
     del d16, d256, sorted_keys, trail, slots
 
     # the 16b+16b plan's shapes at n = 2**24: 2**16-bin digits, MSD t = 16

@@ -201,10 +201,11 @@ class CudaBackend(PassBackend):
     one sweep before the pass loop when the plan fits it), K2/K3 rank (by
     the pass's engine hint; ``None`` → the one-hot kernel K2, and so is a
     "scatter" hint whose K3 count table would pass
-    :data:`~repro_torch.kernels.fractal_rank.TABLE_CAP`), K4
-    reconstruct.  ``block`` is the rank kernels' tile.  A streaming
-    ``carry_in`` is folded into the bin starts the rank kernel takes
-    (rank = bin start + carry + arrival)."""
+    :data:`~repro_torch.kernels.fractal_rank.TABLE_CAP`; K2 takes the
+    pass's counts, which its two-level path above 256 bins needs), K4
+    reconstruct.  ``block`` is the reference's rank block (the kernels
+    tile for themselves).  A streaming ``carry_in`` is folded into the bin
+    starts the rank kernel takes (rank = bin start + carry + arrival)."""
 
     def __init__(self, block: int = 1024):
         self.block = block
@@ -216,9 +217,8 @@ class CudaBackend(PassBackend):
 
         if engine == "scatter" and not scatter_table_fits(digit.shape[0],
                                                           n_bins):
-            # K3's count table would pass its cap at this shape; K2's tile
-            # grows with the bins, so its table stays within the key count
-            # and it gives the same ranks
+            # K3's count table would pass its cap at this shape; K2 keeps
+            # no count table and gives the same ranks
             engine = "onehot"
         if carry_in is not None:
             if bin_start is None:

@@ -24,30 +24,53 @@
 // the block then looks back over its predecessors' words, many at once
 // (adding aggregates until it meets a "prefix"), and publishes the
 // inclusive prefix.  rank = bin_start + this bin's keys in earlier tiles
-// + rank within the tile.  One launch replaces count walk, scan and rank
-// walk, and the digits are read once.  What bounds it in practice is the
-// in-tile ranking (instructions a key) and blocks waiting on the
-// look-back, not the bytes: a copy of the same 8n bytes is faster.
+// + rank within the tile: one launch, and the digits are read once.  What
+// bounds it in practice is the in-tile ranking (instructions a key) and
+// blocks waiting on the look-back, not the bytes: a copy of the same 8n
+// bytes is faster.
 //
-// K2 above 256 bins: the carry is an explicit scan:
-//   1. the count walk (`tile_walk_kernel<false>`) writes a bin-major
-//      (n_bins, tiles) table of per-tile digit counts;
-//   2. the wrapper turns it into per-tile starting slots: one exclusive
-//      cumulative sum over the flattened table (bin-major order is the
-//      stable counting-sort order) re-based on bin_start.  That is a
-//      torch.cumsum between the two launches;
-//   3. the rank walk ranks every tile independently from its column.
-// K2 sizes its tile from n_bins (tile >= n_bins), so the table is kept at
-// or below the key count.
-//
-// K2's rank walk (`tile_walk_kernel<true>`): one warp per tile walks the
-// tile 32 keys at a time; __match_any_sync groups the lanes holding equal
-// keys, a lane's rank is its group's running count plus the popcount of
-// the lower lanes of its group, and the group's lowest lane advances the
-// count.
-// The running counts are the tile's column of the table: in shared memory
-// while they fit (n_bins <= kSharedRowBins), else read and written in
-// place in global memory (the warp owns its column).
+// K2 from 257 to 2^16 bins (`fs_rank_wide`): two levels of the same
+// look-back sweep, each over at most 256 bins, and no table of n_bins
+// entries a tile.  A valid digit d splits into hi = d >> 8 (n_hi =
+// ceil(n_bins / 256) bins) and lo = d & 255:
+//   0. `wide_prep_kernel` (one launch): the hi bins' dense starts (an
+//      exclusive scan of the hi rows of `counts`, the digit's histogram),
+//      base[d] = bin_start[d] - C[hi][lo] with C[hi][lo] the keys of digit
+//      lo in earlier hi rows (an exclusive scan down each lo column), and
+//      the look-back status words of both levels zeroed;
+//   1. level 1 (`lookback_rank_kernel<kBits, kLbHi>`) ranks hi with the
+//      look-back from the hi starts, which puts every valid key at a slot
+//      of the stable hi-major stream of the valid keys.  Each tile is
+//      staged in shared memory in hi order (Onesweep's local sort), so
+//      each hi bin's digits leave the tile as one run of stream slots; the
+//      tile's hi order itself goes to the tile's span of the output, and
+//      each run's stream slot to a small table;
+//   2. level 2 (`lookback_rank_kernel<8, kLbLo>`) ranks lo over that
+//      stream from zero starts: the earlier stream slots with the same lo.
+//      Those are the earlier hi rows' keys of that lo, C[hi][lo], and the
+//      earlier keys of the same digit in its own hi run (level 1 is
+//      stable), so base[d] + that count is the key's rank, which level 2
+//      writes at the stream slot (base reads stay within one or two hi
+//      rows a tile);
+//   3. `wide_unstage_kernel` undoes each tile's local sort: entry q of the
+//      tile's hi order reads its rank from its run's stream slot + q
+//      (consecutive reads along a run) and the tile leaves in arrival
+//      order; a key outside [0, n_bins) gets 0.
+// The digit's counts are the caller's: the sort's and the distributed
+// pass's histogram, or one K1 launch of the wrapper for a bare call.
+// Level 1 invalidates a key on its whole digit (a key in [n_bins, 256 n_hi)
+// has a hi but no bin), so only the valid keys enter the stream; level 2
+// runs over all n slots, and the slots past the valid keys (never read)
+// only rank among themselves.  Reading a key's rank back in arrival order
+// straight from its stream slot costs a random 32-byte sector a key (and
+// one more for base); on the H100 such a gather was the slowest of the
+// four launches, bound by L2 requests, so the tile-local unstaging reads
+// runs instead.  The path moves about 32n bytes against the 8n of the
+// bound; what holds it back most is the two levels' in-tile ranking and
+// look-back, each about K2's time at 256 bins.
+// Scratch (`wide_layout`): both levels' status words (tiles x (n_hi + 256)
+// 64-bit words), the stream and level 2's ranks (4 bytes a key each), the
+// runs (tiles x (n_hi + 1)), base, the hi starts and 256 zero starts.
 //
 // K3 (`scatter_rank_kernel`), the sorted-composite engine: a block of 512
 // threads takes an 8192-key tile, staged with 16-byte cp.async, and sorts
@@ -87,50 +110,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;             // warps a block in the tile kernels
-constexpr int kSharedRowBins = 1024;  // 8 warps x 1024 x 4 B = 32 KiB
-
-// Per-warp running counts over one tile; table[b * num_tiles + t] is bin
-// b of tile t.  kRank=false: count the tile into its column (zeroed by
-// the caller in global mode).  kRank=true: the column holds the tile's
-// starting slots; emit ranks.
-template <bool kRank, bool kShared>
-__global__ void __launch_bounds__(kWarps * 32)
-tile_walk_kernel(const int32_t* __restrict__ keys, int n, int32_t* table,
-                 int32_t* __restrict__ rank, int n_bins, int tile,
-                 int num_tiles) {
-  extern __shared__ int32_t smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long t = (long long)blockIdx.x * kWarps + warp;
-  if (t >= num_tiles) return;  // warp-uniform
-  int32_t* col = table + t;  // bin b at col[b * num_tiles]
-  // running counter of bin b: cnt[b * step]
-  int32_t* cnt = kShared ? smem + warp * n_bins : col;
-  const long long step = kShared ? 1 : num_tiles;
-  if (kShared)
-    for (int b = lane; b < n_bins; b += 32)
-      cnt[b] = kRank ? col[(long long)b * num_tiles] : 0;
-  __syncwarp();
-  const long long lo = t * tile;
-  const long long hi = min(lo + tile, (long long)n);
-  for (long long base = lo; base < hi; base += 32) {
-    const long long i = base + lane;
-    const int key = i < hi ? keys[i] : -1;
-    const bool valid = (unsigned)key < (unsigned)n_bins;
-    const unsigned peers = __match_any_sync(fs::kFullMask, key);
-    const int before = valid ? cnt[key * step] : 0;
-    __syncwarp();  // every peer has read the count before it moves
-    if (valid && lane == __ffs(peers) - 1)
-      cnt[key * step] = before + __popc(peers);
-    if (kRank && i < hi)
-      rank[i] = valid ? before + __popc(peers & fs::lanemask_lt(lane)) : 0;
-    __syncwarp();  // the new count is visible to the next round
-  }
-  if (kShared && !kRank)
-    for (int b = lane; b < n_bins; b += 32)
-      col[(long long)b * num_tiles] = cnt[b];
-}
 
 // ---- K2, one sweep with decoupled look-back (n_bins <= kLbMaxBins) ------------
 
@@ -240,6 +219,52 @@ __device__ __forceinline__ int swizzle(int pos) {
   return swizzle_chunk(pos >> 2) << 2 | (pos & 3);
 }
 
+// Exclusive prefix sum of x over the block's kThreads threads in thread
+// order; *sum gets the block's total.  Every thread calls it.  s_part
+// holds kThreads / 32 words.
+template <int kThreads>
+__device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t x,
+                                                        uint32_t* s_part,
+                                                        uint32_t* sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(fs::kFullMask, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) s_part[warp] = incl;
+  __syncthreads();
+  uint32_t before = incl - x, all = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const uint32_t p = s_part[w];
+    before += w < warp ? p : 0u;
+    all += p;
+  }
+  *sum = all;
+  return before;
+}
+
+// What a launch of the look-back kernel ranks (see below).
+enum LbMode { kLbPlain, kLbHi, kLbLo };
+
+// The two-level path's extra operands: n_digits (the digit's bins), and
+// for kLbHi the hi-major digit stream and the tiles' runs it writes, for
+// kLbLo the digits' bases it adds.
+struct WideArgs {
+  int n_digits;
+  int32_t* stream;
+  int32_t* runs;
+  const int32_t* base;
+};
+
+// kLbHi keeps, beside the static arrays, the tile's first slot of each hi
+// bin, the scan's partials and, in hi order, the keys' positions in the
+// tile in dynamic shared memory.
+constexpr int kHiSmem =
+    (kLbMaxBins + kLbWarps) * sizeof(uint32_t) + kLbTile * sizeof(uint16_t);
+
 // status[tile * n_bins + b]: bin b of a tile; *tile_counter starts at 0.
 // kBits: digit bits (n_bins <= 2^kBits).  vec: keys and rank are 16-byte
 // aligned (whole tiles load and store 16 bytes a thread).
@@ -258,16 +283,33 @@ __device__ __forceinline__ int swizzle(int pos) {
 //     lowest lane of each group advances the warp's count of that bin in
 //     shared memory, and a per-bin prefix over the warps follows.
 // Either way each slot of s_keys then holds a valid key's rank among the
-// keys of its bin before the thread's (or warp's) first, << 8 | key, or -1.
-template <int kBits>
+// keys of its bin before the thread's (or warp's) first, << kShift | key,
+// or -1.
+//
+// The two-level path's levels keep the whole 16-bit digit in a slot
+// (kShift 16) and take a key as valid below wide.n_digits:
+//   - kLbHi (level 1): the bins are the digits' hi bytes (n_bins = n_hi)
+//     and bin_start holds their dense starts.  The tile's keys are staged
+//     in hi order; each hi bin's digits go to one run of the stream
+//     (wide.stream), the tile's hi-order positions (hi << 13 | position in
+//     the tile) to its own span of rank, and each run's stream slot less
+//     its first position in the tile, then the tile's valid keys, to
+//     wide.runs[tile * (n_hi + 1) ...].  Launched with kHiSmem bytes of
+//     dynamic shared memory.
+//   - kLbLo (level 2, over the stream): the bins are the digits' lo
+//     bytes, bin_start is zero, and a slot's rank is wide.base[digit] +
+//     its lo byte's earlier slots.
+template <int kBits, int kMode>
 __global__ void __launch_bounds__(kLbThreads)
 lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
                      const int32_t* __restrict__ bin_start,
                      int32_t* __restrict__ rank, int n_bins,
                      unsigned long long* status,
-                     unsigned long long* tile_counter, int vec) {
+                     unsigned long long* tile_counter, int vec,
+                     WideArgs wide) {
   constexpr bool kThreadCounts = kBits <= 4;
   constexpr int kGroupKeys = kThreadCounts ? kLbItems : kLbWarpKeys;
+  constexpr int kShift = kMode == kLbPlain ? 8 : 16;
   __shared__ __align__(16) int32_t s_keys[kLbTile];
   // kThreadCounts: each thread's first slot per bin, [kLbThreads][16]
   // uint16; else per-warp counts [kLbWarps][kLbMaxBins], then each warp's
@@ -280,6 +322,20 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
   __shared__ bool s_open[kLbMaxBins];  // bin still looking back
   __shared__ int s_tile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // a key's bin, -1 for a key that has none
+  auto bin_of = [&](int key) -> int {
+    if constexpr (kMode == kLbPlain)
+      return key;
+    else if ((unsigned)key >= (unsigned)wide.n_digits)
+      return -1;
+    else
+      return kMode == kLbHi ? key >> 8 : key & 0xff;
+  };
+  // the bin of a ranked slot (>= 0)
+  auto slot_bin = [](int e) -> int {
+    return kMode == kLbHi ? (e & 0xffff) >> 8 : e & 0xff;
+  };
 
   if (tid == 0) s_tile = (int)atomicAdd(tile_counter, 1ull);
   if (!kThreadCounts)
@@ -312,15 +368,15 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
       int kv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int key = kv[u];
-        const bool valid = (unsigned)key < (unsigned)n_bins &&
+        const int key = kv[u], bin = bin_of(key);
+        const bool valid = (unsigned)bin < (unsigned)n_bins &&
                            kLbItems * tid + 4 * j + u < len;
-        const int q = key >> 2, sh = 8 * (key & 3);
+        const int q = bin >> 2, sh = 8 * (bin & 3);
         const uint32_t cur = q == 0 ? c[0] : q == 1 ? c[1] : q == 2 ? c[2] : c[3];
         const uint32_t inc = valid ? 1u << sh : 0u;
 #pragma unroll
         for (int w = 0; w < 4; ++w) c[w] += q == w ? inc : 0u;
-        kv[u] = valid ? (int)((cur >> sh) & 0xff) << 8 | key : -1;
+        kv[u] = valid ? (int)((cur >> sh) & 0xff) << kShift | key : -1;
       }
       mine = make_int4(kv[0], kv[1], kv[2], kv[3]);  // own slots only
     }
@@ -365,25 +421,26 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
     for (int i = 0; i < kLbItems; ++i) {
       const int pos = warp * kLbWarpKeys + 32 * i + lane;
       const int key = pos < len ? s_keys[swizzle(pos)] : -1;
-      const bool valid = (unsigned)key < (unsigned)n_bins;
+      const int bin = bin_of(key);
+      const bool valid = (unsigned)bin < (unsigned)n_bins;
       unsigned peers = __ballot_sync(fs::kFullMask, valid);
 #pragma unroll
       for (int bit = 0; bit < kBits; ++bit) {
-        const bool set = (key >> bit) & 1;
+        const bool set = (bin >> bit) & 1;
         const unsigned votes = __ballot_sync(fs::kFullMask, set);
         peers &= set ? votes : ~votes;
       }
       const int leader = __ffs(peers) - 1;
       int before = 0;
       if (valid && lane == leader) {
-        before = cnt[key];
-        cnt[key] = before + __popc(peers);
+        before = cnt[bin];
+        cnt[bin] = before + __popc(peers);
       }
       before = __shfl_sync(fs::kFullMask, before, leader & 31);
       __syncwarp();  // the new count is visible to the next step
       if (pos < len)
         s_keys[swizzle(pos)] =
-            valid ? (before + __popc(peers & fs::lanemask_lt(lane))) << 8 | key
+            valid ? (before + __popc(peers & fs::lanemask_lt(lane))) << kShift | key
                   : -1;
     }
     __syncthreads();
@@ -398,34 +455,217 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
   }
 
   publish_aggregate(status, tile, n_bins, total);
+
+  // the first slot, in the tile, of bin `bin` among the keys of `group`
+  // (a thread's 32 keys or a warp's 1024)
+  const uint16_t* first16 = reinterpret_cast<const uint16_t*>(s_count);
+  auto first_slot = [&](int group, int bin) -> uint32_t {
+    return kThreadCounts ? first16[16 * group + bin]
+                         : (uint32_t)s_count[group * kLbMaxBins + bin];
+  };
+
+  extern __shared__ __align__(16) uint32_t lb_hi_smem[];
+  uint32_t* s_toff = lb_hi_smem;  // kLbHi: the tile's first slot of a hi bin
+  uint16_t* s_stage = reinterpret_cast<uint16_t*>(s_toff + kLbMaxBins + kLbWarps);
+  uint32_t tile_valid = 0;  // kLbHi: the tile's valid keys
+  if constexpr (kMode == kLbHi) {
+    // stage the tile in hi order while earlier tiles finish: the key at
+    // position pos goes to s_stage[its bin's first slot + its rank]
+    const uint32_t toff = block_exclusive_sum<kLbThreads>(
+        tid < n_bins ? (uint32_t)total : 0u, s_toff + kLbMaxBins, &tile_valid);
+    if (tid < n_bins) s_toff[tid] = toff;
+    __syncthreads();
+    for (int c = tid; 4 * c < len; c += kLbThreads) {
+      const int4 e4 = reinterpret_cast<const int4*>(s_keys)[swizzle_chunk(c)];
+      const int e[4] = {e4.x, e4.y, e4.z, e4.w};
+      const int group = 4 * c / kGroupKeys;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (4 * c + u < len && e[u] >= 0) {
+          const int h = slot_bin(e[u]);
+          s_stage[s_toff[h] + first_slot(group, h) + (e[u] >> kShift)] =
+              (uint16_t)(4 * c + u);
+        }
+      }
+    }
+  }
+
   const unsigned long long carry = lookback_carry<kLbThreads>(
       status, tile, n_bins, total, s_win, s_open);
   if (tid < n_bins) s_base[tid] = (uint32_t)bin_start[tid] + (uint32_t)carry;
   __syncthreads();
 
-  // rank = bin_start + earlier tiles + the group's first slot + rank in
-  // the group; 16-byte stores
-  const uint16_t* first16 = reinterpret_cast<const uint16_t*>(s_count);
-  for (int c = tid; 4 * c < len; c += kLbThreads) {
-    const int4 e4 = reinterpret_cast<const int4*>(s_keys)[swizzle_chunk(c)];
-    const int e[4] = {e4.x, e4.y, e4.z, e4.w};
-    const int group = 4 * c / kGroupKeys;
-    int r[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int key = e[u] < 0 ? 0 : e[u] & 0xff;
-      const uint32_t slot = kThreadCounts ? first16[16 * group + key]
-                                          : (uint32_t)s_count[group * kLbMaxBins + key];
-      r[u] = e[u] < 0 ? 0
-                      : (int32_t)(s_base[key] + slot + (uint32_t)(e[u] >> 8));
+  if constexpr (kMode == kLbHi) {
+    // hi bin h's keys take stream slots s_base[h] + [0, its count): one
+    // run, in the tile's hi order (a slot past n only with counts that are
+    // not the keys')
+    for (int q = tid; q < (int)tile_valid; q += kLbThreads) {
+      const int pos = s_stage[q];
+      const int key = s_keys[swizzle(pos)] & 0xffff, h = key >> 8;
+      const uint32_t dst = s_base[h] - s_toff[h] + (uint32_t)q;
+      if (dst < (uint32_t)n) wide.stream[dst] = key;
+      rank[lo + q] = h << 13 | pos;
     }
-    if (vec && 4 * c + 3 < len) {
-      *reinterpret_cast<int4*>(rank + lo + 4 * c) =
-          make_int4(r[0], r[1], r[2], r[3]);
-    } else {
-      for (int u = 0; u < 4 && 4 * c + u < len; ++u) rank[lo + 4 * c + u] = r[u];
+    int32_t* runs = wide.runs + (long long)tile * (n_bins + 1);
+    if (tid < n_bins) runs[tid] = (int32_t)(s_base[tid] - s_toff[tid]);
+    if (tid == 0) runs[n_bins] = (int32_t)tile_valid;
+    return;
+  } else {
+    // rank = bin_start + earlier tiles + the group's first slot + rank in
+    // the group (+ the digit's base, kLbLo); 16-byte stores
+    for (int c = tid; 4 * c < len; c += kLbThreads) {
+      const int4 e4 = reinterpret_cast<const int4*>(s_keys)[swizzle_chunk(c)];
+      const int e[4] = {e4.x, e4.y, e4.z, e4.w};
+      const int group = 4 * c / kGroupKeys;
+      int r[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int key = e[u] < 0 ? 0 : slot_bin(e[u]);
+        uint32_t v = s_base[key] + first_slot(group, key) +
+                     (uint32_t)(e[u] >> kShift);
+        if constexpr (kMode == kLbLo)
+          v += e[u] < 0 ? 0u : (uint32_t)wide.base[e[u] & 0xffff];
+        r[u] = e[u] < 0 ? 0 : (int32_t)v;
+      }
+      if (vec && 4 * c + 3 < len) {
+        *reinterpret_cast<int4*>(rank + lo + 4 * c) =
+            make_int4(r[0], r[1], r[2], r[3]);
+      } else {
+        for (int u = 0; u < 4 && 4 * c + u < len; ++u) rank[lo + 4 * c + u] = r[u];
+      }
     }
   }
+}
+
+// ---- K2 from 257 to 2^16 bins: the two-level rank ----------------------------
+
+constexpr int kLoBits = 8;                 // a digit's low bits: level 2
+constexpr int kLoBins = 1 << kLoBits;
+constexpr int kMaxDigitBins = 1 << 16;
+constexpr int kPrepThreads = 1024;
+constexpr int kPrepSegs = kPrepThreads / kLoBins;  // row segments a column
+constexpr int kUnstageThreads = 256;
+static_assert(kLoBins == kLbMaxBins, "level 2 is the 256-bin sweep");
+static_assert(kLbTile == 1 << 13, "an entry keeps its position in 13 bits");
+
+// Block 0: hi_start[h] = the valid keys of the hi rows before h (the
+// counts' rows summed, then an exclusive scan), base[d] = bin_start[d] -
+// C[hi][lo] with C[hi][lo] = sum over h < hi of counts[h * 256 + lo]
+// (each column scanned by kPrepSegs threads, one row segment each), and
+// zeros[0, 256) = 0.  Blocks 1.. zero words[0, n_words).
+__global__ void __launch_bounds__(kPrepThreads)
+wide_prep_kernel(const int32_t* __restrict__ counts,
+                 const int32_t* __restrict__ bin_start, int n_bins, int n_hi,
+                 int32_t* __restrict__ base, int32_t* __restrict__ hi_start,
+                 int32_t* __restrict__ zeros,
+                 unsigned long long* __restrict__ words, long long n_words) {
+  const int tid = threadIdx.x;
+  if (blockIdx.x > 0) {
+    const long long step = (long long)(gridDim.x - 1) * kPrepThreads;
+    for (long long w = (long long)(blockIdx.x - 1) * kPrepThreads + tid;
+         w < n_words; w += step)
+      words[w] = 0ull;
+    return;
+  }
+  __shared__ uint32_t s_col[kPrepSegs][kLoBins];  // a segment's column sums
+  __shared__ uint32_t s_row[kLbMaxBins];           // a hi row's keys
+  __shared__ uint32_t s_part[kPrepThreads / 32];
+  const int col = tid % kLoBins, seg = tid / kLoBins, lane = tid & 31;
+  const int rows = (n_hi + kPrepSegs - 1) / kPrepSegs;
+  const int h0 = min(seg * rows, n_hi), h1 = min(h0 + rows, n_hi);
+  if (tid < kLbMaxBins) s_row[tid] = 0;
+  __syncthreads();
+  uint32_t sum = 0;
+#pragma unroll 4
+  for (int h = h0; h < h1; ++h) {  // warp-uniform bounds
+    const int d = h * kLoBins + col;
+    const uint32_t c = d < n_bins ? (uint32_t)counts[d] : 0u;
+    sum += c;
+    uint32_t r = c;  // the warp's 32 columns of row h
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(fs::kFullMask, r, o);
+    if (lane == 0) atomicAdd(&s_row[h], r);
+  }
+  s_col[seg][col] = sum;
+  __syncthreads();
+  uint32_t run = 0;  // the column's keys in rows before h
+  for (int s = 0; s < seg; ++s) run += s_col[s][col];
+#pragma unroll 4
+  for (int h = h0; h < h1; ++h) {
+    const int d = h * kLoBins + col;
+    if (d < n_bins) {
+      base[d] = (int32_t)((uint32_t)bin_start[d] - run);
+      run += (uint32_t)counts[d];
+    }
+  }
+  if (tid < kLoBins) zeros[tid] = 0;
+  uint32_t all;
+  const uint32_t before = block_exclusive_sum<kPrepThreads>(
+      tid < n_hi ? s_row[tid] : 0u, s_part, &all);
+  if (tid < n_hi) hi_start[tid] = (int32_t)before;
+}
+
+// One tile a block.  The tile's span of rank holds level 1's entries in
+// hi order, hi << 13 | position in the tile, and runs its run bases and
+// its valid keys; entry q's rank is within[run base of its hi + q],
+// written at its position (the reads of one hi run are consecutive).
+// Positions no entry names, the keys outside [0, n_bins), get 0.  The
+// tile leaves in arrival order, 16 bytes a thread where rank is 16-byte
+// aligned (vec).
+__global__ void __launch_bounds__(kUnstageThreads)
+wide_unstage_kernel(const int32_t* __restrict__ within,
+                    const int32_t* __restrict__ runs, int32_t* rank, int n,
+                    int n_hi, int vec) {
+  __shared__ __align__(16) int32_t s_out[kLbTile];
+  __shared__ uint32_t s_run[kLbMaxBins];
+  const int tid = threadIdx.x;
+  const long long lo = (long long)blockIdx.x * kLbTile;
+  const int len = (int)min((long long)kLbTile, (long long)n - lo);
+  const int32_t* run = runs + (long long)blockIdx.x * (n_hi + 1);
+  if (tid < n_hi) s_run[tid] = (uint32_t)run[tid];
+  const int valid = run[n_hi];
+  for (int c = tid; c < kLbTile / 4; c += kUnstageThreads)
+    reinterpret_cast<int4*>(s_out)[c] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  for (int q = tid; q < valid; q += kUnstageThreads) {
+    const int entry = rank[lo + q];
+    const uint32_t k = s_run[entry >> 13] + (uint32_t)q;
+    s_out[entry & (kLbTile - 1)] = k < (uint32_t)n ? within[k] : 0;
+  }
+  __syncthreads();
+  if (vec && len == kLbTile) {
+    for (int c = tid; c < kLbTile / 4; c += kUnstageThreads)
+      reinterpret_cast<int4*>(rank + lo)[c] =
+          reinterpret_cast<const int4*>(s_out)[c];
+  } else {
+    for (int e = tid; e < len; e += kUnstageThreads) rank[lo + e] = s_out[e];
+  }
+}
+
+// Byte offsets of the wide path's scratch, each region 16-byte aligned:
+// level 1's status words (tiles x n_hi, then the tile counter), level 2's
+// (tiles x 256, then its counter), the stream, within, the tiles' runs
+// (tiles x (n_hi + 1)), base, the hi starts and 256 zero starts.  The
+// status words [0, stream) start zeroed.
+struct WideLayout {
+  long long status2, stream, within, runs, base, hi_start, zeros, bytes;
+};
+
+inline long long up16(long long b) { return (b + 15) & ~15LL; }
+
+inline WideLayout wide_layout(long long n, int n_bins) {
+  const long long tiles = (n + kLbTile - 1) / kLbTile;
+  const int n_hi = (n_bins + kLoBins - 1) / kLoBins;
+  WideLayout L;
+  L.status2 = up16(8 * (tiles * n_hi + 1));
+  L.stream = L.status2 + up16(8 * (tiles * kLoBins + 1));
+  L.within = L.stream + up16(4 * n);
+  L.runs = L.within + up16(4 * n);
+  L.base = L.runs + up16(4 * tiles * (n_hi + 1));
+  L.hi_start = L.base + up16(4LL * n_bins);
+  L.zeros = L.hi_start + up16(4LL * n_hi);
+  L.bytes = L.zeros + 4LL * kLoBins;
+  return L;
 }
 
 // ---- K3, the sorted-composite engine ---------------------------------------------
@@ -705,43 +945,7 @@ int launch_scatter(const void* keys, long long n, const void* start,
   return (int)cudaGetLastError();
 }
 
-template <bool kRank>
-int launch_walk(const void* keys, long long n, void* table, void* rank,
-                int n_bins, int tile, cudaStream_t s) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const int num_tiles = (int)((n + tile - 1) / tile);
-  const int blocks = (num_tiles + kWarps - 1) / kWarps;
-  if (n_bins <= kSharedRowBins) {
-    const size_t bytes = (size_t)kWarps * n_bins * sizeof(int32_t);
-    tile_walk_kernel<kRank, true><<<blocks, kWarps * 32, bytes, s>>>(
-        (const int32_t*)keys, (int)n, (int32_t*)table, (int32_t*)rank,
-        n_bins, tile, num_tiles);
-  } else {
-    if (!kRank)  // global counters start from zero
-      cudaMemsetAsync(table, 0, (size_t)num_tiles * n_bins * sizeof(int32_t), s);
-    tile_walk_kernel<kRank, false><<<blocks, kWarps * 32, 0, s>>>(
-        (const int32_t*)keys, (int)n, (int32_t*)table, (int32_t*)rank,
-        n_bins, tile, num_tiles);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-// table[b][t] = #{i in tile t : keys[i] == b}; tiles of `tile` keys,
-// table (n_bins, ceil(n / tile)).
-FS_EXPORT int fs_rank_tile_counts(const void* keys, long long n, void* table,
-                                  int n_bins, int tile, void* stream) {
-  return launch_walk<false>(keys, n, table, nullptr, n_bins, tile,
-                            (cudaStream_t)stream);
-}
-
-// K2: ranks from per-tile starting slots (table columns, consumed in place).
-FS_EXPORT int fs_rank_onehot(const void* keys, long long n, void* table,
-                             void* rank, int n_bins, int tile, void* stream) {
-  return launch_walk<true>(keys, n, table, rank, n_bins, tile,
-                           (cudaStream_t)stream);
-}
 
 // Keys a tile of fs_rank_lookback, which sizes its status buffer.
 FS_EXPORT int fs_rank_lookback_tile() { return kLbTile; }
@@ -757,11 +961,63 @@ FS_EXPORT int fs_rank_lookback(const void* keys, long long n,
     return (int)cudaErrorInvalidValue;
   const long long tiles = (n + kLbTile - 1) / kLbTile;
   auto* words = (unsigned long long*)status;
-  auto kernel = n_bins <= 16 ? lookback_rank_kernel<4> : lookback_rank_kernel<8>;
+  auto kernel = n_bins <= 16 ? lookback_rank_kernel<4, kLbPlain>
+                             : lookback_rank_kernel<8, kLbPlain>;
   kernel<<<(unsigned)tiles, kLbThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)keys, (int)n, (const int32_t*)bin_start,
       (int32_t*)rank, n_bins, words, words + tiles * n_bins,
-      (uintptr_t)keys % 16 == 0 && (uintptr_t)rank % 16 == 0);
+      (uintptr_t)keys % 16 == 0 && (uintptr_t)rank % 16 == 0, WideArgs{});
+  return (int)cudaGetLastError();
+}
+
+// K2 from 257 to 2^16 bins: the two-level rank, four launches (prep, level
+// 1, level 2, unstage).  `counts` is the histogram of keys over [0, n_bins)
+// (out-of-range keys not counted); `scratch` is 16-byte aligned and holds
+// at least wide_layout(n, n_bins).bytes bytes (the wrapper's
+// `wide_rank_scratch_bytes`), of any content; fewer is refused.
+FS_EXPORT int fs_rank_wide(const void* keys, long long n, const void* counts,
+                           const void* bin_start, void* rank, int n_bins,
+                           void* scratch, long long scratch_bytes,
+                           void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const WideLayout L = wide_layout(n, n_bins);
+  if (n_bins <= kLbMaxBins || n_bins > kMaxDigitBins || n >= (1LL << 31) ||
+      scratch_bytes < L.bytes || (uintptr_t)scratch % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  char* mem = (char*)scratch;
+  auto* status1 = (unsigned long long*)mem;
+  auto* status2 = (unsigned long long*)(mem + L.status2);
+  WideArgs wide{n_bins, (int32_t*)(mem + L.stream), (int32_t*)(mem + L.runs),
+                (const int32_t*)(mem + L.base)};
+  auto* within = (int32_t*)(mem + L.within);
+  auto* hi_start = (int32_t*)(mem + L.hi_start);
+  auto* zeros = (int32_t*)(mem + L.zeros);
+  const long long tiles = (n + kLbTile - 1) / kLbTile;
+  const int n_hi = (n_bins + kLoBins - 1) / kLoBins;
+
+  const long long words = L.stream / 8;
+  const int zero_blocks = fs::grid_for(words, 4LL * kPrepThreads,
+                                       4 * fs::sm_count());
+  wide_prep_kernel<<<1 + zero_blocks, kPrepThreads, 0, st>>>(
+      (const int32_t*)counts, (const int32_t*)bin_start, n_bins, n_hi,
+      (int32_t*)wide.base, hi_start, zeros, status1, words);
+
+  auto level1 = n_hi <= 16 ? lookback_rank_kernel<4, kLbHi>
+                           : lookback_rank_kernel<8, kLbHi>;
+  cudaFuncSetAttribute(level1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kHiSmem);
+  level1<<<(unsigned)tiles, kLbThreads, kHiSmem, st>>>(
+      (const int32_t*)keys, (int)n, hi_start, (int32_t*)rank, n_hi, status1,
+      status1 + tiles * n_hi, (uintptr_t)keys % 16 == 0, wide);
+
+  lookback_rank_kernel<8, kLbLo><<<(unsigned)tiles, kLbThreads, 0, st>>>(
+      wide.stream, (int)n, zeros, within, kLoBins, status2,
+      status2 + tiles * kLoBins, 1, wide);
+
+  wide_unstage_kernel<<<(unsigned)tiles, kUnstageThreads, 0, st>>>(
+      within, wide.runs, (int32_t*)rank, (int)n, n_hi,
+      (uintptr_t)rank % 16 == 0);
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,13 @@ separate kernels with separate launch counters.  The reference carries
 the running per-bin count across a sequential grid.  Here both carry it
 up to :data:`LOOKBACK_MAX_BINS` bins by decoupled look-back between
 tiles, in one launch over a zeroed status buffer
-(:func:`lookback_status_bytes`); above that it is an explicit scan over a
-table of per-tile counts: K2's is bin-major ``(n_bins, tiles)`` with a
-tile of at least ``n_bins`` keys, K3's tile-major ``(tiles, n_bins)``
-with its 8192-key tile (:data:`SCATTER_TILE`; see the note in the CUDA
-source).  A table is refused above :data:`TABLE_CAP` entries.
+(:func:`lookback_status_bytes`).  Above that, K2 ranks in two levels of
+the same look-back, the digit's high bits (:func:`wide_hi_bins` bins)
+and then its low :data:`WIDE_LO_BITS` bits over the high-major order,
+with a scratch of :func:`wide_rank_scratch_bytes`; K3 takes an explicit
+scan over a tile-major ``(tiles, n_bins)`` table of per-tile counts with
+its 8192-key tile (:data:`SCATTER_TILE`; see the note in the CUDA
+source), refused above :data:`TABLE_CAP` entries.
 
 On a CPU tensor each wrapper computes the plain version
 (:func:`~repro_torch.kernels.ref.rank_ref`); on a CUDA tensor it launches
@@ -46,26 +48,31 @@ __all__ = [
     "fractal_rank_digit",
     "lookback_status_bytes",
     "lookback_tiles",
-    "onehot_tile_len",
     "scatter_table_entries",
     "scatter_table_fits",
     "uses_lookback",
+    "WIDE_LO_BITS",
+    "wide_hi_bins",
+    "wide_rank_scratch_bytes",
 ]
 
 DEFAULT_BLOCK = 1024
 _MAX_BINS = 1 << 16
 
-#: Most int32 entries the per-tile count table may hold (1 GiB).  K2's
-#: tile grows with n_bins so its table never exceeds the key count (plus
-#: one tile); K3's tile is its 8192-key sort tile, so wide digits over
-#: long streams pass the cap (at 2**16 bins, n <= 2**25 is admitted).
+#: Most int32 entries K3's per-tile count table may hold (1 GiB).  Its
+#: tile is its 8192-key sort tile, so wide digits over long streams pass
+#: the cap (at 2**16 bins, n <= 2**25 is admitted); K2 has no such table.
 TABLE_CAP = 1 << 28
 
 #: K2's one-sweep path: keys a tile (256 threads x 32; the kernel's own,
 #: checked when the library loads), and the most bins it takes (one
-#: look-back thread a bin); wider digits take the table path
+#: look-back thread a bin); wider digits take the two-level path
 LOOKBACK_TILE = 8192
 LOOKBACK_MAX_BINS = 256
+
+#: K2's two-level path: level 2 ranks a digit's low bits, level 1 the
+#: rest (its high bits, at most LOOKBACK_MAX_BINS bins up to 2**16)
+WIDE_LO_BITS = 8
 
 #: K3's tile: keys a CTA sorts (512 threads x 16; the kernel's own,
 #: checked when the library loads).  It is the tile of its look-back
@@ -78,8 +85,7 @@ SCATTER_TILE = 8192
 def _lib():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib = _build.library("fractal_rank", {
-        "fs_rank_tile_counts": [vp, ll, vp, i, i, vp],
-        "fs_rank_onehot": [vp, ll, vp, vp, i, i, vp],
+        "fs_rank_wide": [vp, ll, vp, vp, vp, i, vp, ll, vp],
         "fs_rank_lookback": [vp, ll, vp, vp, i, vp, vp],
         "fs_rank_lookback_tile": [],
         "fs_rank_scatter_tile": [],
@@ -96,15 +102,9 @@ def _lib():
     return lib
 
 
-def onehot_tile_len(n_bins: int, block: int = DEFAULT_BLOCK) -> int:
-    """K2's tile: at least ``block`` keys and at least ``n_bins``, so the
-    (n_bins, tiles) table holds no more entries than keys (plus a tile)."""
-    return max(block, 1 << max(n_bins - 1, 0).bit_length())
-
-
 def uses_lookback(n_bins: int) -> bool:
-    """Whether K2 ranks ``n_bins`` bins in one look-back sweep (else count
-    walk, scan and rank walk)."""
+    """Whether K2 ranks ``n_bins`` bins in one look-back sweep (else in
+    two levels of it)."""
     return n_bins <= LOOKBACK_MAX_BINS
 
 
@@ -119,6 +119,30 @@ def lookback_status_bytes(n: int, n_bins: int,
     """Bytes of the look-back status buffer: one 64-bit word per (tile,
     bin), then the tile counter."""
     return 8 * (lookback_tiles(n, tile) * n_bins + 1)
+
+
+def wide_hi_bins(n_bins: int) -> int:
+    """Bins of the high part of a digit of ``n_bins`` bins once its low
+    :data:`WIDE_LO_BITS` bits are split off: K2's level-1 bins."""
+    return -(-n_bins // (1 << WIDE_LO_BITS))
+
+
+def wide_rank_scratch_bytes(n: int, n_bins: int) -> int:
+    """Bytes of K2's two-level scratch above :data:`LOOKBACK_MAX_BINS`
+    bins (the CUDA entry refuses less), each region rounded up to 16
+    bytes: both levels' status buffers (:func:`lookback_status_bytes` at
+    the high bins and at 2**WIDE_LO_BITS bins), the high-major digit
+    stream and its ranks (4 bytes a key each), each tile's run slots and
+    valid keys (4 bytes each), the digits' bases (4 bytes a bin), the high
+    bins' starts and the low level's zero starts."""
+    def up(b: int) -> int:
+        return -(-b // 16) * 16
+
+    n_hi = wide_hi_bins(n_bins)
+    return (up(lookback_status_bytes(n, n_hi))
+            + up(lookback_status_bytes(n, 1 << WIDE_LO_BITS))
+            + 2 * up(4 * n) + up(4 * lookback_tiles(n) * (n_hi + 1))
+            + up(4 * n_bins) + up(4 * n_hi) + 4 * (1 << WIDE_LO_BITS))
 
 
 def scatter_table_entries(n: int, n_bins: int) -> int:
@@ -148,27 +172,6 @@ def _check_args(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int):
     _build.check_operand(bin_start, "bin_start", n_bins)
 
 
-def _tile_starts(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int,
-                 tile: int) -> torch.Tensor:
-    """The explicit carry scan: per-tile counts (kernel), then each tile's
-    starting slot per bin = bin_start + counts of all earlier tiles."""
-    n = keys.shape[0]
-    tiles = -(-n // tile)
-    _check_table(tiles, n_bins)
-    # bin-major: flattened, it is in stable counting-sort order, so one
-    # 1-D exclusive scan gives every (bin, tile) its dense start
-    table = torch.empty((n_bins, tiles), dtype=torch.int32, device=keys.device)
-    _build.check(_lib().fs_rank_tile_counts(
-        keys.data_ptr(), n, table.data_ptr(), n_bins, tile,
-        _build.stream(keys.device)), "fs_rank_tile_counts")
-    flat = table.view(-1)
-    starts = torch.cumsum(flat, 0, dtype=torch.int32)
-    starts -= flat
-    starts = starts.view(n_bins, tiles)
-    starts += (bin_start - starts[:, 0])[:, None]  # dense start -> bin_start
-    return starts
-
-
 def _scatter_tile_starts(keys: torch.Tensor, bin_start: torch.Tensor,
                          n_bins: int) -> torch.Tensor:
     """K3's explicit carry scan: per-tile counts (kernel) into a zeroed
@@ -190,12 +193,15 @@ def _scatter_tile_starts(keys: torch.Tensor, bin_start: torch.Tensor,
 
 
 def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
-                        n_bins: int,
-                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
+                        n_bins: int, block: int = DEFAULT_BLOCK,
+                        counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: stable output slot per key given exclusive bin starts.
     ``keys`` is int32 in ``[0, n_bins)``; ``bin_start`` is ``(n_bins,)``
-    int32.  Keys outside the range get rank 0.  ``block`` sets the tile
-    of the table path (above :data:`LOOKBACK_MAX_BINS` bins)."""
+    int32.  Keys outside the range get rank 0.  ``block`` is the
+    reference's argument (checked, no tile here).  Above
+    :data:`LOOKBACK_MAX_BINS` bins the two-level path takes ``counts``,
+    the histogram of ``keys`` over ``[0, n_bins)``, or launches K1 for it;
+    up to that, ``counts`` is not read."""
     if keys.device.type == "cpu":
         return ref.rank_ref(keys, bin_start, n_bins)
     _check_args(keys, bin_start, n_bins)
@@ -203,21 +209,26 @@ def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
         raise ValueError(f"block={block} must be positive")
     n = keys.shape[0]
     rank = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    if n and uses_lookback(n_bins):
+    if not n:
+        return rank
+    if uses_lookback(n_bins):
         status = torch.zeros(lookback_status_bytes(n, n_bins) // 8,
                              dtype=torch.int64, device=keys.device)
         _build.check(_lib().fs_rank_lookback(
             keys.data_ptr(), n, bin_start.data_ptr(), rank.data_ptr(),
             n_bins, status.data_ptr(), _build.stream(keys.device)),
             "fractal_rank_kernel")
-        _build.count_launch(fractal_rank_kernel)
-    elif n:
-        tile = onehot_tile_len(n_bins, block)
-        starts = _tile_starts(keys, bin_start, n_bins, tile)
-        _build.check(_lib().fs_rank_onehot(
-            keys.data_ptr(), n, starts.data_ptr(), rank.data_ptr(), n_bins,
-            tile, _build.stream(keys.device)), "fractal_rank_kernel")
-        _build.count_launch(fractal_rank_kernel)
+    else:
+        if counts is None:
+            counts = fractal_histogram(keys, n_bins)
+        _build.check_operand(counts, "counts", n_bins)
+        scratch = torch.empty(wide_rank_scratch_bytes(n, n_bins),
+                              dtype=torch.uint8, device=keys.device)
+        _build.check(_lib().fs_rank_wide(
+            keys.data_ptr(), n, counts.data_ptr(), bin_start.data_ptr(),
+            rank.data_ptr(), n_bins, scratch.data_ptr(), scratch.numel(),
+            _build.stream(keys.device)), "fractal_rank_kernel")
+    _build.count_launch(fractal_rank_kernel)
     return rank
 
 
@@ -273,9 +284,10 @@ def fractal_rank_counts(digit: torch.Tensor, n_bins: int,
                         counts: Optional[torch.Tensor] = None):
     """Kernel-path rank primitive on an extracted digit stream: the
     digit's counts → exclusive scan → the ``engine``'s rank kernel
-    (``None`` and "onehot" → K2, "scatter" → K3).  The counts are
-    ``counts`` when given (a sort takes every pass's counts from one K1
-    sweep before its pass loop), else one K1 launch on ``digit``.
+    (``None`` and "onehot" → K2, which takes the counts too, "scatter" →
+    K3).  The counts are ``counts`` when given (a sort takes every pass's
+    counts from one K1 sweep before its pass loop), else one K1 launch on
+    ``digit``.
 
     Returns ``(rank, counts, carry_out)`` with ``carry_out == counts`` —
     the executor's streaming-carry contract; a call starts from zero
@@ -287,9 +299,12 @@ def fractal_rank_counts(digit: torch.Tensor, n_bins: int,
         counts = fractal_histogram(digit, n_bins)
     if bin_start is None:
         bin_start = exclusive_cumsum(counts)
-    kernel = (fractal_rank_scatter_kernel if engine == "scatter"
-              else fractal_rank_kernel)
-    rank = kernel(digit, bin_start, n_bins, block=block)
+    if engine == "scatter":
+        rank = fractal_rank_scatter_kernel(digit, bin_start, n_bins,
+                                           block=block)
+    else:
+        rank = fractal_rank_kernel(digit, bin_start, n_bins, block=block,
+                                   counts=counts)
     return rank, counts, counts
 
 

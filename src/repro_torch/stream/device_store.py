@@ -60,7 +60,8 @@ from repro_torch.core.faults import CorruptFragmentError, StorePermanentError
 from repro_torch.core.fractal_sort import resolve_device
 from repro_torch.core.fractal_tree import ceil_log2
 from repro_torch.kernels.fractal_rank import (SCATTER_TILE,
-                                              scatter_table_entries)
+                                              scatter_table_entries,
+                                              wide_rank_scratch_bytes)
 from repro_torch.obs import metrics, trace
 from repro_torch.query.codec import word_widths
 from repro_torch.stream.chunks import (Bytes, MemoryBudget, PlacementStore,
@@ -91,15 +92,15 @@ def shard_sort_bytes(padded_rows: int, rows: int, num_words: int,
     Per shard row on the device, 48: the pass's key and payload, digit,
     rank, destination, slot and bucket position, the int64 bucket index
     and the send and receive buckets, live at once as the pass runs
-    (the most of them at once, with a margin).  The local rank's count
-    table at 2**16 bins and its scan: K3's (tiles, 2**16) table, or K2's
-    one entry a key, whichever is larger.  Per real row: the loaded and
+    (the most of them at once, with a margin).  The local rank's scratch
+    at 2**16 bins: K3's (tiles, 2**16) count table and its scan, or K2's
+    two-level scratch, whichever is larger.  Per real row: the loaded and
     the sorted words on the host (``4 * num_words`` each), the payloads
     loaded and gathered (``payload_bytes`` each) and the int64 row ids
     (8)."""
     shard = -(-padded_rows // max(group_size, 1))
-    table = 8 * max(scatter_table_entries(shard, 1 << 16), shard) \
-        if shard else 0
+    table = max(8 * scatter_table_entries(shard, 1 << 16),
+                wide_rank_scratch_bytes(shard, 1 << 16)) if shard else 0
     return (padded_rows * (4 * num_words + 8) + shard * 48 + table
             + rows * (8 * num_words + 2 * payload_bytes + 8))
 

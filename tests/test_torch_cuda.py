@@ -83,7 +83,7 @@ def _digits(rng, n, n_bins, dist):
 @pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
 def test_rank_lookback_matches_plain_version(rng, cuda_device, n_bins, dist):
     """Across the look-back tile (8192 keys) boundaries, on skewed keys and
-    with pads; 257 bins takes the table path."""
+    with pads; 257 bins takes the two-level path."""
     for n in (1, 4095, 8191, 8192, 8193, 3 * 8192 + 5, 100_003):
         keys = torch.from_numpy(_digits(rng, n, n_bins, dist)).to(cuda_device)
         start = torch.from_numpy(
@@ -108,7 +108,9 @@ def test_rank_lookback_unaligned_keys(rng, cuda_device):
                                           (257, True), (1 << 16, True)])
 def test_rank_table_walk_only_above_256_bins(rng, cuda_device, monkeypatch,
                                              n_bins, table):
-    """Up to 256 bins K2 is the one look-back launch: no count walk."""
+    """Up to 256 bins K2 is the one look-back launch; above, the one
+    two-level entry (prep, two look-back levels, gather): no count walk,
+    no per-tile table, and the launch counter adds one either way."""
     lib = rank_mod._lib()
     called = []
 
@@ -125,9 +127,72 @@ def test_rank_table_walk_only_above_256_bins(rng, cuda_device, monkeypatch,
     got = fractal_rank_kernel(keys, start, n_bins)
     assert fractal_rank_kernel.launches == before + 1
     assert torch.equal(got, ref.rank_ref(keys, start, n_bins))
-    want = (["fs_rank_tile_counts", "fs_rank_onehot"] if table
-            else ["fs_rank_lookback"])
+    want = ["fs_rank_wide"] if table else ["fs_rank_lookback"]
     assert called == want
+
+
+def _wide_digits(rng, n, n_bins, dist):
+    """``_digits``' streams plus 1 % keys in [n_bins, 256 * n_hi): a high
+    byte below the two-level path's high bins but no digit."""
+    d = _digits(rng, n, n_bins, dist)
+    past = 256 * rank_mod.wide_hi_bins(n_bins)
+    if past > n_bins:
+        d[rng.random(n) < 0.01] = rng.integers(n_bins, past)
+    return d
+
+
+@pytest.mark.parametrize("n_bins", [257, 300, 511, 4096, 4097, 1 << 16])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+@pytest.mark.parametrize("given", [False, True])
+def test_rank_two_level_matches_plain_version(rng, cuda_device, n_bins, dist,
+                                              given):
+    """K2 above 256 bins across the 8192-key tile edges, at the high/low
+    split's edges (2, 2, 2, 16 and 17 high bins, 256 at 2**16), on skewed
+    keys with -1, n_bins and valid-high-byte pads, from non-dense bin
+    starts, with the digit's counts given (as a sort passes them) or
+    counted by the wrapper."""
+    for n in (1, 4095, 8191, 8192, 8193, 3 * 8192 + 5, 100_003):
+        keys = torch.from_numpy(_wide_digits(rng, n, n_bins, dist)).to(
+            cuda_device)
+        start = torch.from_numpy(
+            rng.integers(0, 1 << 20, n_bins).astype(np.int32)).to(cuda_device)
+        counts = ref.histogram_ref(keys, n_bins) if given else None
+        before = fractal_rank_kernel.launches
+        got = fractal_rank_kernel(keys, start, n_bins, counts=counts)
+        assert fractal_rank_kernel.launches == before + 1
+        assert torch.equal(got, ref.rank_ref(keys, start, n_bins)), n
+
+
+@pytest.mark.parametrize("n_bins,off", [(300, 1), (4096, 2), (1 << 16, 3)])
+def test_rank_two_level_unaligned_keys(rng, cuda_device, n_bins, off):
+    """A digit stream off a 16-byte boundary: level 1 stages its tiles
+    element by element and the gather moves 4 bytes at a time."""
+    base = torch.from_numpy(_wide_digits(rng, 50_001 + off, n_bins,
+                                         "uniform")).to(cuda_device)
+    keys = base[off:]
+    start = torch.from_numpy(rng.integers(0, 1 << 20, n_bins).astype(
+        np.int32)).to(cuda_device)
+    assert keys.data_ptr() % 16 != 0
+    assert torch.equal(fractal_rank_kernel(keys, start, n_bins),
+                       ref.rank_ref(keys, start, n_bins))
+
+
+def test_rank_two_level_edge_streams(rng, cuda_device):
+    """No keys, only pads (no valid key enters the stream), and a long
+    2**16-bin stream of 2**22 keys."""
+    n_bins = 1 << 16
+    start = torch.from_numpy(rng.integers(0, 1 << 20, n_bins).astype(
+        np.int32)).to(cuda_device)
+    empty = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    assert fractal_rank_kernel(empty, start, n_bins).shape == (0,)
+    pads = torch.full((20_000,), -1, dtype=torch.int32, device=cuda_device)
+    pads[::3] = n_bins
+    assert not bool(fractal_rank_kernel(pads, start, n_bins).any())
+    keys = torch.from_numpy(_wide_digits(rng, 1 << 22, n_bins, "zipf")).to(
+        cuda_device)
+    counts = fractal_histogram(keys, n_bins)
+    assert torch.equal(fractal_rank_kernel(keys, start, n_bins, counts=counts),
+                       ref.rank_ref(keys, start, n_bins))
 
 
 def test_sort_entry_points_launch_the_kernels(rng, cuda_device):

@@ -9,7 +9,16 @@ held against the port's plain version and the JAX package's Pallas kernel
 in interpret mode, at the reference's test shapes and the kernel's stated
 fp32 tolerance; plain TF32 is shown to miss it.  K2's look-back path is
 sized by pure functions: its tile count, status buffer and the switch to
-the table path above 256 bins.
+the two-level path above 256 bins.
+
+K2's two-level path (257 to 2**16 bins) is emulated in plain torch with
+the kernels' arithmetic: the digit's high byte ranked by a look-back over
+tiles from the high bins' dense starts (each valid key's slot in the
+stable high-major stream), the low byte ranked the same way over that
+stream from zero starts, and rank = bin_start[d] - C[hi][lo] + the low
+rank at the key's slot.  The emulation is held bit-exact against the
+plain version and the reference's one-hot Pallas kernel (interpret mode),
+and its sizing helpers against their formulas.
 """
 
 import math
@@ -19,11 +28,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_kernel as jax_flash
+from repro.kernels.fractal_rank import fractal_rank_kernel as jax_rank_onehot
 from repro_torch.kernels import ref
 from repro_torch.kernels.fractal_rank import (LOOKBACK_MAX_BINS, LOOKBACK_TILE,
+                                              WIDE_LO_BITS,
                                               lookback_status_bytes,
-                                              lookback_tiles, uses_lookback)
+                                              lookback_tiles, uses_lookback,
+                                              wide_hi_bins,
+                                              wide_rank_scratch_bytes)
 
 TOL_F32 = 2e-5  # K5's fp32 tolerance (sums in another order)
 SHAPES = [(2, 64, 4, 16, 64), (1, 48, 2, 8, 80), (2, 100, 2, 32, 100)]
@@ -146,3 +160,207 @@ def test_lookback_status_buffer_bytes(n, n_bins, nbytes):
 def test_lookback_path_switch_at_256_bins(n_bins, lookback):
     assert LOOKBACK_MAX_BINS == 256
     assert uses_lookback(n_bins) is lookback
+
+
+# --- K2's two-level path above 256 bins ---------------------------------------
+
+LO_BINS = 1 << WIDE_LO_BITS
+
+
+def tile_ranks(x: torch.Tensor, n_bins: int, tile: int) -> tuple:
+    """Each element's rank among the equal elements before it in its tile,
+    and every tile's count of each bin; elements outside [0, n_bins) are
+    in no bin."""
+    n = x.shape[0]
+    tiles = max(1, -(-n // tile))
+    padded = torch.full((tiles * tile,), -1, dtype=torch.int64)
+    padded[:n] = x
+    onehot = (padded.view(tiles, tile, 1)
+              == torch.arange(n_bins)).to(torch.int64)
+    before = torch.cumsum(onehot, 1) - onehot
+    return (before * onehot).sum(-1).view(-1)[:n], onehot.sum(1)
+
+
+def lookback_rank(x: torch.Tensor, start: torch.Tensor, n_bins: int,
+                  tile: int) -> torch.Tensor:
+    """One look-back sweep: start[bin] + the bin's elements in earlier
+    tiles (the carry) + the rank in the tile; 0 outside [0, n_bins)."""
+    r, counts = tile_ranks(x, n_bins, tile)
+    carry = torch.cumsum(counts, 0) - counts
+    t = torch.arange(x.shape[0]) // tile
+    b = x.clamp(0, n_bins - 1)
+    valid = (x >= 0) & (x < n_bins)
+    return torch.where(valid, start[b] + carry[t, b] + r, 0)
+
+
+def two_level_rank(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int,
+                   tile: int = LOOKBACK_TILE, tail=None) -> torch.Tensor:
+    """K2's wide path in plain torch.  ``tail``: what the digit stream
+    holds past the valid keys (the kernel leaves it unwritten)."""
+    k = keys.to(torch.int64)
+    n = k.shape[0]
+    n_hi = wide_hi_bins(n_bins)
+    # the prep: the high rows' dense starts and base = bin_start - C
+    grid = torch.zeros(n_hi * LO_BINS, dtype=torch.int64)
+    grid[:n_bins] = ref.histogram_ref(keys, n_bins)
+    grid = grid.view(n_hi, LO_BINS)
+    rows = grid.sum(1)
+    hi_start = torch.cumsum(rows, 0) - rows
+    c_before = (torch.cumsum(grid, 0) - grid).reshape(-1)[:n_bins]
+    base = bin_start.to(torch.int64) - c_before
+    # level 1: a key is valid on its whole digit, then ranked on its high
+    # byte; its slot in the stable high-major stream of the valid keys
+    valid = (k >= 0) & (k < n_bins)
+    hi = torch.where(valid, k >> WIDE_LO_BITS, -1)
+    slot = lookback_rank(hi, hi_start, n_hi, tile)
+    stream = torch.full((n,), -1, dtype=torch.int64)
+    if tail is not None:
+        stream = tail.to(torch.int64).clone()
+    stream[slot[valid]] = k[valid]
+    # level 2: the low byte over that stream from zero starts, plus the
+    # digit's base, at each stream slot
+    in_range = (stream >= 0) & (stream < n_bins)
+    lo = torch.where(in_range, stream & (LO_BINS - 1), -1)
+    within = (lookback_rank(lo, torch.zeros(LO_BINS, dtype=torch.int64),
+                            LO_BINS, tile)
+              + torch.where(in_range, base[stream.clamp(0, n_bins - 1)], 0))
+    # the unstaging: each valid key's rank from its stream slot
+    return torch.where(valid, within[slot], 0).to(torch.int32)
+
+
+def _wide_keys(rng, n: int, n_bins: int, dist: str) -> np.ndarray:
+    """Digits uniform, zipf(1.2)-skewed or in one bin, with 2 % -1 pads, 2 %
+    keys past n_bins that still have a high byte below the high bins
+    (where n_bins is not a multiple of 256) and 1 % keys past every high
+    bin."""
+    if dist == "uniform":
+        d = rng.integers(0, n_bins, n)
+    elif dist == "zipf":
+        d = np.minimum(rng.zipf(1.2, n) - 1, n_bins - 1)
+    else:
+        d = np.full(n, rng.integers(0, n_bins))
+    d = d.astype(np.int64)
+    d[rng.random(n) < 0.02] = -1
+    past = LO_BINS * wide_hi_bins(n_bins)
+    if past > n_bins:
+        d[rng.random(n) < 0.02] = rng.integers(n_bins, past)
+    d[rng.random(n) < 0.01] = rng.integers(past, 1 << 17)
+    return d.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_bins", [257, 300, 511, 4096])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_two_level_rank_matches_plain_and_reference_kernel(n_bins, dist):
+    """At the high/low split's edges (2, 2, 2 and 16 high bins), on the
+    kernel's 8192-key tile (one tile here) and on a 97-key tile (many
+    tiles: the carry between them), with non-dense bin starts."""
+    rng = np.random.default_rng([n_bins, len(dist)])
+    n = 2999
+    keys = _wide_keys(rng, n, n_bins, dist)
+    start = rng.integers(0, 1 << 20, n_bins).astype(np.int32)
+    tk, ts = torch.from_numpy(keys), torch.from_numpy(start)
+    want = ref.rank_ref(tk, ts, n_bins)
+    pallas = np.asarray(jax_rank_onehot(jnp.asarray(keys), jnp.asarray(start),
+                                        n_bins, block=256))
+    np.testing.assert_array_equal(want.numpy(), pallas)
+    for tile in (LOOKBACK_TILE, 97):
+        np.testing.assert_array_equal(
+            two_level_rank(tk, ts, n_bins, tile).numpy(), pallas)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_two_level_rank_at_2_16_bins(dist):
+    """256 high bins, each key nearly alone in its digit; against the
+    port's plain version and the reference's plain ``rank_ref`` (its
+    one-hot kernel would hold a (block, 2**16) tile).  The reference's
+    ``rank_ref`` takes in-range keys only, so it ranks the in-range
+    subsequence: an out-of-range key moves no other key's rank."""
+    rng = np.random.default_rng([16, len(dist)])
+    n_bins = 1 << 16
+    keys = _wide_keys(rng, 3000, n_bins, dist)
+    start = rng.integers(-(1 << 30), 1 << 30, n_bins).astype(np.int32)
+    tk, ts = torch.from_numpy(keys), torch.from_numpy(start)
+    valid = (keys >= 0) & (keys < n_bins)
+    want = np.zeros_like(keys)
+    want[valid] = np.asarray(jref.rank_ref(jnp.asarray(keys[valid]),
+                                           jnp.asarray(start), n_bins))
+    np.testing.assert_array_equal(ref.rank_ref(tk, ts, n_bins).numpy(), want)
+    for tile in (LOOKBACK_TILE, 211):
+        np.testing.assert_array_equal(
+            two_level_rank(tk, ts, n_bins, tile).numpy(), want)
+
+
+@pytest.mark.parametrize("n_bins", [300, 1 << 16])
+def test_two_level_stream_tail_is_never_read(n_bins):
+    """The low-digit stream past the valid keys holds whatever the scratch
+    held; level 2 ranks it after every valid slot, so no rank moves."""
+    rng = np.random.default_rng(n_bins)
+    keys = _wide_keys(rng, 2000, n_bins, "uniform")
+    keys[rng.random(2000) < 0.2] = -1
+    start = torch.from_numpy(rng.integers(0, 1 << 20, n_bins).astype(np.int32))
+    tk = torch.from_numpy(keys)
+    tail = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 2000))
+    got = two_level_rank(tk, start, n_bins, 64, tail=tail)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref.rank_ref(tk, start, n_bins).numpy())
+
+
+@pytest.mark.parametrize("n_bins", [257, 4096, 1 << 16])
+def test_level1_stages_each_tile_in_high_runs(n_bins):
+    """Level 1's local sort: in each tile the valid keys' staged positions
+    (the tile's first slot of their high bin + their rank in it) are a
+    permutation of the tile's valid keys, and the run base of each high bin
+    (high start + carry - that first slot) plus a key's staged position is
+    its look-back slot, so each high bin leaves the tile as one run and
+    the unstaging reads its rank from there."""
+    rng = np.random.default_rng(n_bins + 1)
+    tile, n = 128, 1500
+    k = torch.from_numpy(_wide_keys(rng, n, n_bins, "zipf")).to(torch.int64)
+    n_hi = wide_hi_bins(n_bins)
+    valid = (k >= 0) & (k < n_bins)
+    hi = torch.where(valid, k >> WIDE_LO_BITS, -1)
+    rows = torch.bincount(hi[valid], minlength=n_hi)
+    hi_start = torch.cumsum(rows, 0) - rows
+    r, counts = tile_ranks(hi, n_hi, tile)
+    carry = torch.cumsum(counts, 0) - counts
+    first = torch.cumsum(counts, 1) - counts  # the tile's first slot a bin
+    t = torch.arange(n) // tile
+    h = hi.clamp(0, n_hi - 1)
+    staged = first[t, h] + r
+    for i in range(counts.shape[0]):
+        mine = valid & (t == i)
+        assert sorted(staged[mine].tolist()) == list(range(int(mine.sum())))
+    dst = hi_start[h] + carry[t, h] - first[t, h] + staged
+    np.testing.assert_array_equal(
+        dst[valid].numpy(), lookback_rank(hi, hi_start, n_hi, tile)[valid])
+    assert sorted(dst[valid].tolist()) == list(range(int(valid.sum())))
+
+
+@pytest.mark.parametrize("n_bins,n_hi", [(257, 2), (300, 2), (511, 2),
+                                         (512, 2), (513, 3), (4096, 16),
+                                         (4097, 17), (1 << 16, 256)])
+def test_wide_split_high_bins(n_bins, n_hi):
+    """The high byte's bins: up to 16 (n_bins <= 4096) level 1 counts in
+    registers, above it matches by ballots; every valid digit's high byte
+    is below them, and so is that of a key in [n_bins, 256 * n_hi)."""
+    assert wide_hi_bins(n_bins) == n_hi
+    assert (n_bins - 1) >> WIDE_LO_BITS == n_hi - 1
+    assert (LO_BINS * n_hi - 1) >> WIDE_LO_BITS == n_hi - 1
+    assert n_hi <= LOOKBACK_MAX_BINS and not uses_lookback(n_bins)
+
+
+@pytest.mark.parametrize("n,n_bins,nbytes", [
+    # status words 24 -> 32 and 2056 -> 2064, stream and ranks 16 each,
+    # runs 12 -> 16, bases 1028 -> 1040, high starts 16, zero starts 1024
+    (1, 257, 32 + 2064 + 16 + 16 + 16 + 1040 + 16 + 1024),
+    # two tiles, 16 high bins: each status buffer 8 bytes short of 16
+    (LOOKBACK_TILE + 1, 4096, (8 * (2 * 16 + 1) + 8) + (8 * (2 * 256 + 1) + 8)
+     + 2 * 4 * (LOOKBACK_TILE + 4) + 144 + 4 * 4096 + 64 + 1024),
+    # 2**27 keys: 64 MiB of status words (the old table and its scan were
+    # 1 GiB), 1 GiB of stream and ranks, 16 MiB of runs, 256 KiB of bases
+    (1 << 27, 1 << 16, 2 * (8 * (16384 * 256 + 1) + 8) + (1 << 30)
+     + 4 * 16384 * 257 + (1 << 18) + 1024 + 1024),
+])
+def test_wide_rank_scratch_bytes(n, n_bins, nbytes):
+    assert wide_rank_scratch_bytes(n, n_bins) == nbytes
+    assert nbytes % 16 == 0
