@@ -32,8 +32,10 @@ Phases, each fatal on failure:
    without, K3 also at 2**16 bins over n = 2**22 and on an unaligned
    stream; K1 over n in
    {1, 31, 4095, 4097, 2**20 + 37} x n_bins in {1, 2, 15, 16, 17, 32, 33,
-   256, 2**14, 2**14 + 1, 2**16} on streams 0-3 elements off a 16-byte
-   boundary, with pads, with and without init; K1's one-sweep entry
+   256, 2**14, 2**14 + 1, 20000, 3 * 2**14 + 3, 2**16 - 1, 2**16} (both
+   sides of the switch to the cluster path, its slices full and short) on
+   uniform, zipf(1.2) and one-bin digits, streams 0-3 elements off a
+   16-byte boundary, with pads, with and without init; K1's one-sweep entry
    against per-digit plain histograms for the p = 32, 16, 7 and 8-bit
    plans at n in {1, 4097, 2**20 + 37}, aligned and not, with and without
    init;
@@ -150,7 +152,13 @@ then, on a one-rank process group (NCCL; a file rendezvous, no network):
    payload, each bit-exact against ``torch.sort`` / a stable
    ``torch.argsort`` with no bucket overflow; fails unless K1 and K2
    launched on this path (and K3 where the engine rule sends a 16-bit
-   field there); K1 and K2 at its shapes (2**16 bins, with and without
+   field there); K1 at the pass's 2**16 bins on the uniform and zipf
+   keys' high 16-bit field and on one bin, bit-exact and timed beside its
+   plain version and ``torch.bincount`` (a yardstick the port never
+   calls; the global-atomic version's times on the log line only), with a
+   profiler check that it runs the cluster kernel alone (all three before
+   the process group exists); K1 and
+   K2 at its shapes (2**16 bins, with and without
    the counts; one destination) against their plain versions; K2's time
    at the pass's 2**16 bins with the counts given, as the pass calls it
    (beside its plain version, a stable ``torch.sort`` of the digit and
@@ -161,7 +169,8 @@ then, on a one-rank process group (NCCL; a file rendezvous, no network):
    6, where the profiler is not on a process group; logged as not
    checked where the profiler traces no device kernel); the sorts'
    times beside the in-memory ``fractal_sort`` and ``torch.sort``
-   (``--profile``: the device time of one p = 32 sort by kernel);
+   (``--profile``: the device time of one p = 32 sort of the uniform and
+   of the zipf keys by kernel);
 16. the device store: ``external_sort`` and ``external_argsort`` of
    phase 13's uniform host keys under the same 64 MiB budget with
    ``store=DeviceShardStore()``, sized by the store's row cost, and the
@@ -189,6 +198,7 @@ import contextlib
 import dataclasses
 import datetime
 import gc
+import itertools
 import json
 import os
 import re
@@ -221,6 +231,12 @@ FIRST_VERSION_MS = {"fractal_histogram": 0.674, "fractal_rank_kernel": 1.122,
 # scan and rank walk over a per-tile table), from an earlier run of this
 # script (PERF.md); printed on phase 15's log line only
 TABLE_WALK_MS = 23.505
+# K1 at 2**27 keys and 2**16 bins before its cluster path (one device
+# atomic a key), by digit, from an earlier run of this script (PERF.md);
+# printed on phase 15's log line only
+GLOBAL_ATOMIC_K1_MS = {"uniform": 1.976, "zipf": 91.555, "one_bin": 98.921}
+# the kernel of one K1 call above 2**14 bins
+K1_WIDE_KERNEL = "histogram_cluster_kernel"
 # the kernels of one K2 call above 256 bins
 K2_WIDE_KERNELS = ("wide_prep_kernel", "lookback_rank_kernel",
                    "wide_unstage_kernel")
@@ -364,6 +380,23 @@ def check_k2_wide(fn, what: str, exact: bool = True) -> None:
     if exact and found != [1, 2, 1]:
         raise AssertionError(f"K2 at {what} ran {names}, expected "
                              f"{list(K2_WIDE_KERNELS)} x [1, 2, 1]")
+
+
+def check_k1_wide(fn, what: str) -> None:
+    """Fail unless one warm call of ``fn``, K1 above 2**14 bins, runs the
+    cluster kernel once and no other histogram kernel (the output's fill
+    aside).  Logged as not checked where the profiler traces no device
+    kernel."""
+    names = kernel_names(fn)
+    if names is None:
+        log(f"[kernels] one K1 call at {what}: not checked, the profiler "
+            f"traced no device kernel")
+        return
+    log(f"[kernels] one K1 call at {what} runs {json.dumps(names)}")
+    k1 = [k for k in names if "histogram" in k]
+    if len(k1) != 1 or K1_WIDE_KERNEL not in k1[0]:
+        raise AssertionError(f"K1 at {what} ran {names}, expected "
+                             f"{K1_WIDE_KERNEL} alone")
 
 
 def sass_hmma_counts(lib: Path) -> dict:
@@ -1293,6 +1326,37 @@ def stream_phases(args, dev, card: str, path_counts: dict) -> tuple:
     return e2e, errs
 
 
+def k1_wide_digits(uni: torch.Tensor, zipf: torch.Tensor) -> dict:
+    """The distributed pass's K1 digits at 2**16 bins: the high 16-bit
+    field of phase 15's uniform and zipf(1.2) keys, and every key in one
+    bin (the first uniform key's field)."""
+    high = lambda k: (k.view(torch.int32) >> 16) & 0xFFFF
+    u = high(uni)
+    return {"uniform": u, "zipf": high(zipf),
+            "one_bin": torch.full_like(u, int(u[0]))}
+
+
+def k1_wide_times(digits: dict) -> dict:
+    """K1 at 2**16 bins on each of ``digits``, one call at a time, beside
+    its plain version and ``torch.bincount`` (a yardstick the port never
+    calls); each result is first held bit-exact against the plain one."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fractal_histogram import fractal_histogram
+
+    bins = 1 << 16
+    times = {}
+    for name, d in digits.items():
+        err = max_abs_err(fractal_histogram(d, bins), ref.histogram_ref(d, bins))
+        if err:
+            raise AssertionError(f"fractal_histogram at 2**16 bins, {name}: "
+                                 f"max |err| = {err}")
+        times[name] = {
+            "ms": cuda_ms(lambda: fractal_histogram(d, bins)),
+            "plain_ms": cuda_ms(lambda: ref.histogram_ref(d, bins), 1, 3),
+            "library_ms": cuda_ms(lambda: torch.bincount(d, minlength=bins))}
+    return times
+
+
 @contextlib.contextmanager
 def one_rank_group(dev):
     """A one-rank process group for the distributed phases: NCCL on the
@@ -1376,6 +1440,28 @@ def distributed_phases(args, dev, card: str, path_counts: dict) -> tuple:
     log(f"[distributed] n = 2**{args.log2n} keys a set from seed "
         f"{args.seed} in {time.perf_counter() - t0:.1f} s; one "
         f"{'NCCL' if dev.type == 'cuda' else 'gloo'} rank")
+    # K1 as the pass calls it (2**16 bins) on the uniform and zipf keys'
+    # high field and on one bin: each bit-exact, then timed, before the
+    # process group exists (there the profiler traces device kernels);
+    # launches here count on no path
+    k1_digits = k1_wide_digits(uni, zipf)
+    k1_times = k1_wide_times(k1_digits)
+    k1_wide = {
+        "shape": f"n=2**{args.log2n}, 2**16 bins (the distributed pass's "
+                 f"local histogram; uniform, zipf and one-bin digits)",
+        **{key: {d: t[key] for d, t in k1_times.items()}
+           for key in ("ms", "plain_ms", "library_ms")},
+        # keys read once, the counts read (init) and written once
+        "bound_ms": (4 * n + 8 * (1 << 16)) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    log(f"[time] fractal_histogram at {k1_wide['shape']}: " + "; ".join(
+        f"{d} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, torch.bincount "
+        f"{t['library_ms']:.3f})" for d, t in k1_times.items())
+        + f"; bound {k1_wide['bound_ms']:.3f} ms; earlier run: global "
+          f"atomics {json.dumps(GLOBAL_ATOMIC_K1_MS)} ms")
+    check_k1_wide(lambda: fractal_histogram(k1_digits["zipf"], 1 << 16),
+                  f"n=2**{args.log2n}, 2**16 bins, the zipf keys' high field")
+    del k1_digits
     e2e = []
     with one_rank_group(dev):
         ops.reset_launch_counts()
@@ -1498,9 +1584,11 @@ def distributed_phases(args, dev, card: str, path_counts: dict) -> tuple:
                         uni, None, 32), 1, 5)})
         log(f"[e2e] {json.dumps(e2e[-1])}")
         if args.profile:
-            log(json.dumps({"profile_distributed_sort_p32": profile_call(
-                lambda: distributed_fractal_sort(uni, None, 32), top=20),
-                "card": card}))
+            for dist_name, keys in (("uniform", uni), ("zipf", zipf)):
+                log(json.dumps({
+                    f"profile_distributed_sort_p32_{dist_name}": profile_call(
+                        lambda: distributed_fractal_sort(keys, None, 32),
+                        top=20), "card": card}))
         del data, uni, zipf, payload, kb
         gc.collect()
         torch.cuda.empty_cache()
@@ -1606,7 +1694,8 @@ def distributed_phases(args, dev, card: str, path_counts: dict) -> tuple:
         for k in ("fractal_histogram", "fractal_rank_kernel"):
             if counts[k] <= 0:
                 raise AssertionError(f"the device store path launched no {k}")
-    return e2e, errs, {"fractal_rank_kernel": wide}
+    return e2e, errs, {"fractal_rank_kernel": wide,
+                       "fractal_histogram": k1_wide}
 
 
 def main() -> int:
@@ -1786,25 +1875,32 @@ def main() -> int:
               fractal_rank_scatter_kernel(keys, start, n_bins),
               ref.rank_ref(keys, start, n_bins),
               f"n={n} n_bins={n_bins} offset {off}")
-    # K1: register, shared and global counting; unaligned, ragged streams
+    # K1: register, shared and cluster counting; unaligned, ragged streams
     k1_cases = 0
-    for n in (1, 31, 4095, 4097, (1 << 20) + 37):
-        for n_bins in (1, 2, 15, 16, 17, 32, 33, 256, 1 << 14,
-                       (1 << 14) + 1, 1 << 16):
-            d = rng.integers(-1, n_bins + 1, n + 3).astype(np.int32)
-            base = torch.from_numpy(d).to(dev)
-            init = torch.from_numpy(
-                rng.integers(0, 1000, n_bins).astype(np.int32)).to(dev)
-            for off in (0, 1, 2, 3):
-                keys = base[off:off + n]
-                what = f"n={n} n_bins={n_bins} offset {off}"
-                agree("fractal_histogram", fractal_histogram(keys, n_bins),
-                      ref.histogram_ref(keys, n_bins), what)
-                agree("fractal_histogram",
-                      fractal_histogram(keys, n_bins, init=init),
-                      ref.histogram_ref(keys, n_bins, init=init),
-                      what + " init")
-                k1_cases += 1
+    for n, n_bins, dist in itertools.product(
+            (1, 31, 4095, 4097, (1 << 20) + 37),
+            (1, 2, 15, 16, 17, 32, 33, 256, 1 << 14, (1 << 14) + 1, 20_000,
+             3 * (1 << 14) + 3, (1 << 16) - 1, 1 << 16),
+            ("uniform", "zipf", "one_bin")):
+        if dist == "uniform":
+            d = rng.integers(-1, n_bins + 1, n + 3)
+        else:
+            d = (np.minimum(rng.zipf(1.2, n + 3) - 1, n_bins - 1)
+                 if dist == "zipf" else np.full(n + 3, rng.integers(n_bins)))
+            d[rng.random(n + 3) < 0.01] = -1
+            d[rng.random(n + 3) < 0.01] = n_bins
+        base = torch.from_numpy(d.astype(np.int32)).to(dev)
+        init = torch.from_numpy(
+            rng.integers(0, 1000, n_bins).astype(np.int32)).to(dev)
+        for off in (0, 1, 2, 3):
+            keys = base[off:off + n]
+            what = f"n={n} n_bins={n_bins} {dist} offset {off}"
+            agree("fractal_histogram", fractal_histogram(keys, n_bins),
+                  ref.histogram_ref(keys, n_bins), what)
+            agree("fractal_histogram",
+                  fractal_histogram(keys, n_bins, init=init),
+                  ref.histogram_ref(keys, n_bins, init=init), what + " init")
+            k1_cases += 1
     # K1's one sweep: every digit of a plan against per-digit histograms
     sweep_cases = 0
     for n in (1, 4097, (1 << 20) + 37):
@@ -1827,8 +1923,9 @@ def main() -> int:
                               f"n={n} digit {dp} offset {off} "
                               f"init={carried is not None}")
                     sweep_cases += 1
-    log(f"[kernels] K1 bit-exact over {k1_cases} cases (n x n_bins x offset, "
-        f"with and without init), its one sweep over {sweep_cases} cases "
+    log(f"[kernels] K1 bit-exact over {k1_cases} cases (n x n_bins x "
+        f"uniform/zipf/one-bin x offset, with and without init), its one "
+        f"sweep over {sweep_cases} cases "
         f"(n x plan x offset x init)")
     # the histogram's init carried over ragged chunks equals one histogram
     d = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 37).astype(np.int32)).to(dev)
@@ -2155,6 +2252,10 @@ def main() -> int:
                                      for p, c in path_counts.items()}
         if entry["name"] in dist_shapes:
             entry["distributed_shape"] = dist_shapes[entry["name"]]
+        if entry["name"] == "fractal_histogram":  # its route above 2**14
+            entry["cluster_launches_by_path"] = {
+                p: c.get("fractal_histogram_cluster", 0)
+                for p, c in path_counts.items()}
 
     name = torch.cuda.get_device_name(0)
     log(json.dumps({"e2e": e2e, "card": card}))

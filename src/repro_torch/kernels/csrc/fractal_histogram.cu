@@ -30,10 +30,22 @@
 //       * up to 2^14 bins: sub-histograms in shared memory, one per warp
 //         while they fit in kSubBudget bytes (else one per group of
 //         warps), plain shared atomicAdd, summed at the block's end;
-//       * above 2^14 bins (up to 2^16): a per-block copy would take most
-//         of an SM's shared memory and its flush would cost as much as
-//         the keys, so keys count straight into the output with global
-//         atomics.
+//       * above 2^14 bins (up to 2^16): one block's copy of 2^16 counters
+//         would pass its shared memory, so the bins are cut into 2^15-bin
+//         slices (128 KiB of shared memory), one a block, and a
+//         thread-block cluster of one block a slice (one block up to
+//         2^15 bins, two above) holds one histogram.  Every block of a
+//         cluster reads the cluster's share of the stream and counts the
+//         keys of its own slice with plain shared atomics; the cluster
+//         launch runs its blocks at once, so the second read of a vector
+//         comes from L2.  Equal keys in a row of one thread's stream add
+//         as one run, so a skewed digit's hot bin costs one shared atomic
+//         a run, not a key.  1024 threads a block, one block an SM, one
+//         wave of clusters: the only device atomics are each block's
+//         non-zero counts.  (Adding each key into its owner's slice over
+//         distributed shared memory, `red.shared::cluster`, was tried
+//         first: on an H100 the rate of remote adds, not the key stream,
+//         set its pace, and it ran slower the more blocks a cluster had.)
 //   - every digit in one sweep (`fs_histogram_digits`): a digit's
 //     histogram does not change when the keys are permuted, so every
 //     pass's counts of a sort come from one read of the key stream before
@@ -53,6 +65,8 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kRegBins = 16;           // per-thread register counters
 constexpr int kSharedBins = 1 << 14;   // shared sub-histograms up to here
+constexpr int kClusterThreads = 1024;  // a block of the cluster path
+constexpr int kMaxCluster = 8;         // portable cluster size
 constexpr int kSubBudget = 32 * 1024;  // bytes of sub-histograms a block
 constexpr int kKeysPerThread = 16;     // least keys a thread before the cap
 // loop steps (8 keys each) between widenings of the 8-bit counters:
@@ -73,6 +87,34 @@ __device__ __forceinline__ void for_each_key(const int32_t* __restrict__ keys,
   const long long tail = head + 4 * nvec;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  const int4* vec = reinterpret_cast<const int4*>(keys + head);
+  for (long long v = tid; v < nvec; v += 2 * stride) {
+    const bool second = v + stride < nvec;
+    const int4 a = __ldg(vec + v);
+    const int4 b = second ? __ldg(vec + v + stride) : make_int4(0, 0, 0, 0);
+    f(a.x, true); f(a.y, true); f(a.z, true); f(a.w, true);
+    f(b.x, second); f(b.y, second); f(b.z, second); f(b.w, second);
+    f.step();
+  }
+  if (tid < head) f(keys[tid], true);
+  if (tid < n - tail) f(keys[tail + tid], true);
+}
+
+// for_each_key over the grid's clusters of `cluster` blocks: every block of
+// cluster u visits the keys that block u of a grid of gridDim.x / cluster
+// blocks would.  A copy, not a shared body: with one body the compiler
+// gave the register kernel other code (46 registers, not 55), a tenth
+// slower on an H100.
+template <class F>
+__device__ __forceinline__ void for_each_cluster_key(
+    const int32_t* __restrict__ keys, long long n, F& f, int cluster) {
+  const long long head =
+      min(n, (long long)(((16 - ((uintptr_t)keys & 15)) & 15) >> 2));
+  const long long nvec = (n - head) >> 2;
+  const long long tail = head + 4 * nvec;
+  const long long tid =
+      (long long)(blockIdx.x / cluster) * blockDim.x + threadIdx.x;
+  const long long stride = (long long)(gridDim.x / cluster) * blockDim.x;
   const int4* vec = reinterpret_cast<const int4*>(keys + head);
   for (long long v = tid; v < nvec; v += 2 * stride) {
     const bool second = v + stride < nvec;
@@ -118,7 +160,7 @@ struct RegisterCounts {
   }
 };
 
-// Sub-histograms in shared memory (or the output itself) by atomicAdd.
+// Sub-histograms in shared memory by atomicAdd.
 struct AtomicCounts {
   int32_t* hist;
   int n_bins;
@@ -173,11 +215,89 @@ histogram_shared_kernel(const int32_t* __restrict__ keys, long long n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-histogram_global_kernel(const int32_t* __restrict__ keys, long long n,
-                        int32_t* __restrict__ out, int n_bins) {
-  AtomicCounts f{out, n_bins};
-  for_each_key(keys, n, f);
+// The keys of one thread's stream that fall in this block's slice; equal
+// keys in a row (other keys between them aside) add as one shared atomic.
+struct SliceCounts {
+  int32_t* slice;
+  int n_bins, slice_bits, rank;
+  int run_key = -1;
+  int run = 0;
+  __device__ __forceinline__ void flush() {
+    if (run) atomicAdd(&slice[run_key & ((1 << slice_bits) - 1)], run);
+  }
+  __device__ __forceinline__ void operator()(int key, bool valid) {
+    if (!valid || (unsigned)key >= (unsigned)n_bins ||
+        (key >> slice_bits) != rank)
+      return;
+    if (key == run_key) {
+      ++run;
+      return;
+    }
+    flush();
+    run_key = key;
+    run = 1;
+  }
+  __device__ __forceinline__ void step() {}
+};
+
+// 2^14 < n_bins <= 2^16: block r of each cluster of `cluster` blocks holds
+// bins [r << slice_bits, (r + 1) << slice_bits) in shared memory; every
+// block of a cluster reads the cluster's share of the stream and counts
+// the keys of its own slice.
+__global__ void __launch_bounds__(kClusterThreads)
+histogram_cluster_kernel(const int32_t* __restrict__ keys, long long n,
+                         int32_t* __restrict__ out, int n_bins,
+                         int slice_bits, int cluster) {
+  extern __shared__ int32_t smem[];
+  const int slice = 1 << slice_bits;
+  const int rank = (int)(blockIdx.x % cluster);
+  for (int e = threadIdx.x; e < slice; e += blockDim.x) smem[e] = 0;
+  __syncthreads();
+  SliceCounts f{smem, n_bins, slice_bits, rank};
+  for_each_cluster_key(keys, n, f, cluster);
+  f.flush();
+  __syncthreads();
+  const int lo = rank << slice_bits;
+  for (int b = threadIdx.x; b < slice && lo + b < n_bins; b += blockDim.x) {
+    const int c = smem[b];
+    if (c) atomicAdd(&out[lo + b], c);
+  }
+}
+
+// The cluster kernel's launch: `clusters` clusters of `cluster` blocks,
+// 4 << slice_bits bytes of shared memory a block.
+cudaLaunchConfig_t cluster_config(int cluster, int slice_bits, int clusters,
+                                  cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * cluster));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = sizeof(int32_t) << slice_bits;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cudaSuccess when a cluster of `cluster` blocks of 4 << slice_bits bytes
+// is a shape the card takes (after allowing the kernel that much dynamic
+// shared memory).
+cudaError_t cluster_shape_ok(int cluster, int slice_bits) {
+  if (cluster < 1 || cluster > kMaxCluster || slice_bits < 0 ||
+      slice_bits > 15)
+    return cudaErrorInvalidValue;
+  int max_smem = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t bytes = sizeof(int32_t) << slice_bits;
+  if (bytes > (size_t)max_smem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(histogram_cluster_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // ---- every digit in one sweep ------------------------------------------------
@@ -280,7 +400,8 @@ int launch_digits(const int32_t* keys, long long n, int32_t* out,
 
 }  // namespace
 
-// out[b] += #{i < n : keys[i] == b} for b in [0, n_bins).
+// out[b] += #{i < n : keys[i] == b} for b in [0, n_bins), n_bins at most
+// 2^14 (wider: fs_histogram_cluster).
 FS_EXPORT int fs_histogram(const void* keys, long long n, void* out,
                            int n_bins, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
@@ -301,10 +422,44 @@ FS_EXPORT int fs_histogram(const void* keys, long long n, void* out,
     histogram_shared_kernel<<<grid_for_keys(kernel, bytes, n), kThreads, bytes,
                               s>>>(k, n, o, n_bins, copies);
   } else {
-    auto kernel = histogram_global_kernel;
-    histogram_global_kernel<<<grid_for_keys(kernel, 0, n), kThreads, 0, s>>>(
-        k, n, o, n_bins);
+    return (int)cudaErrorInvalidValue;  // fs_histogram_cluster's widths
   }
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of `cluster` blocks, 4 << slice_bits bytes of shared
+// memory each, that the card runs at once, into *clusters.
+FS_EXPORT int fs_histogram_cluster_capacity(int cluster, int slice_bits,
+                                            int* clusters) {
+  *clusters = 0;
+  cudaError_t e = cluster_shape_ok(cluster, slice_bits);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, slice_bits, 1, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters,
+                                             histogram_cluster_kernel, &cfg);
+}
+
+// out[b] += #{i < n : keys[i] == b} for b in [0, n_bins), n_bins at most
+// cluster << slice_bits: `clusters` clusters of `cluster` blocks, each
+// block a slice of 1 << slice_bits counters.
+FS_EXPORT int fs_histogram_cluster(const void* keys, long long n, void* out,
+                                   int n_bins, int cluster, int slice_bits,
+                                   int clusters, void* stream) {
+  if (n_bins < 1 || clusters < 1 ||
+      ((long long)cluster << std::max(slice_bits, 0)) < n_bins)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cluster_shape_ok(cluster, slice_bits);
+  if (e != cudaSuccess) return (int)e;
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      cluster, slice_bits, clusters, (cudaStream_t)stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, histogram_cluster_kernel,
+                         (const int32_t*)keys, n, (int32_t*)out, n_bins,
+                         slice_bits, cluster);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

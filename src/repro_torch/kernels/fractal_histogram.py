@@ -12,6 +12,17 @@ plan's digits fit in shared memory (:func:`sweep_eligible`), else one
 single-digit launch per digit.  On a CPU tensor each wrapper computes the
 plain version (:mod:`~repro_torch.kernels.ref`); on a CUDA tensor it
 launches the kernel or raises.
+
+:func:`fractal_histogram` counts in registers up to 16 bins and in
+shared sub-histograms up to :data:`SHARED_MAX_BINS`; wider digits (up to
+2**16 bins) take the cluster path: the bins are cut into slices of
+2**:data:`CLUSTER_SLICE_BITS` counters, one a block's shared memory, and
+a thread-block cluster of one block a slice (:func:`cluster_layout`)
+reads its share of the stream once from device memory, each block
+counting the keys of its own slice; only each block's non-zero counts
+reach the output by device atomics.  Its grid is one wave of clusters
+(:func:`cluster_grid`), and its launches count on
+:func:`fractal_histogram_cluster` too.
 """
 
 from __future__ import annotations
@@ -25,11 +36,23 @@ import torch
 from repro_torch.core.fractal_tree import as_u32_bits
 from repro_torch.kernels import _build, ref
 
-__all__ = ["SWEEP_GROUP_BITS", "SWEEP_MAX_BINS", "fractal_histogram",
-           "fractal_histogram_digits", "digit_histograms", "sweep_eligible",
-           "sweep_groups"]
+__all__ = ["CLUSTER_SLICE_BITS", "CLUSTER_THREADS", "SHARED_MAX_BINS",
+           "SWEEP_GROUP_BITS", "SWEEP_MAX_BINS", "cluster_grid",
+           "cluster_layout", "fractal_histogram",
+           "fractal_histogram_cluster", "fractal_histogram_digits",
+           "digit_histograms", "sweep_eligible", "sweep_groups"]
 
 _MAX_BINS = 1 << 16
+
+#: The widest digit counted in one block's shared sub-histograms; wider
+#: ones take the cluster path, whose blocks each hold a slice of
+#: 2**CLUSTER_SLICE_BITS counters (128 KiB of shared memory).
+SHARED_MAX_BINS = 1 << 14
+CLUSTER_SLICE_BITS = 15
+#: threads a block of the cluster path, and the least keys a thread before
+#: its grid is capped (the kernel's kClusterThreads and kKeysPerThread)
+CLUSTER_THREADS = 1024
+KEYS_PER_THREAD = 16
 
 #: The sweep's limits: the plan's bins summed (its per-digit counts and
 #: the joint histograms each fit in one block's shared memory), the widest
@@ -47,8 +70,42 @@ def _lib():
     ip = ctypes.POINTER(ctypes.c_int)
     return _build.library("fractal_histogram", {
         "fs_histogram": [vp, ll, vp, i, vp],
+        "fs_histogram_cluster": [vp, ll, vp, i, i, i, i, vp],
+        "fs_histogram_cluster_capacity": [i, i, ip],
         "fs_histogram_digits": [vp, ll, vp, i, ip, ip, ip, vp],
     })
+
+
+def cluster_layout(n_bins: int) -> tuple:
+    """The cluster path's shape for ``n_bins`` above
+    :data:`SHARED_MAX_BINS`: (blocks a cluster, bits of a block's slice).
+    Block r holds bins ``[r << bits, (r + 1) << bits)``; the last block's
+    slice is short where ``n_bins`` is not a multiple of ``1 << bits``."""
+    if not SHARED_MAX_BINS < n_bins <= _MAX_BINS:
+        raise ValueError(f"n_bins={n_bins} is not a cluster-path width "
+                         f"({SHARED_MAX_BINS + 1}..{_MAX_BINS})")
+    return -(-n_bins >> CLUSTER_SLICE_BITS), CLUSTER_SLICE_BITS
+
+
+def cluster_grid(n: int, max_clusters: int) -> int:
+    """Clusters for ``n`` keys: one wave (at most ``max_clusters``, what
+    the card runs at once), and no more than one a
+    ``CLUSTER_THREADS * KEYS_PER_THREAD`` keys (every block of a cluster
+    reads all of the cluster's keys), so that a block's flush (one device
+    atomic a non-zero counter) is never more atomics than its keys."""
+    if max_clusters < 1:
+        raise RuntimeError("no cluster of the histogram's shape fits the card")
+    return max(1, min(max_clusters,
+                      -(-n // (CLUSTER_THREADS * KEYS_PER_THREAD))))
+
+
+@functools.cache
+def _max_clusters(cluster: int, bits: int) -> int:
+    """What the card runs at once of the cluster kernel at this shape."""
+    got = ctypes.c_int(0)
+    _build.check(_lib().fs_histogram_cluster_capacity(
+        cluster, bits, ctypes.byref(got)), "fractal_histogram_cluster")
+    return got.value
 
 
 def fractal_histogram(keys: torch.Tensor, n_bins: int,
@@ -68,14 +125,35 @@ def fractal_histogram(keys: torch.Tensor, n_bins: int,
         out.copy_(init)
     n = keys.shape[0]
     if n:
-        _build.check(_lib().fs_histogram(
-            keys.data_ptr(), n, out.data_ptr(), n_bins,
-            _build.stream(keys.device)), "fractal_histogram")
+        if n_bins <= SHARED_MAX_BINS:
+            _build.check(_lib().fs_histogram(
+                keys.data_ptr(), n, out.data_ptr(), n_bins,
+                _build.stream(keys.device)), "fractal_histogram")
+        else:
+            fractal_histogram_cluster(keys, out)
         _build.count_launch(fractal_histogram)
     return out
 
 
 fractal_histogram.launches = 0
+
+
+def fractal_histogram_cluster(keys: torch.Tensor, out: torch.Tensor) -> None:
+    """Add the bincount of the int32 CUDA ``keys`` over
+    ``[0, out.shape[0])`` onto ``out`` in place by the cluster path
+    (``SHARED_MAX_BINS < out.shape[0] <= 2**16``), the launch that
+    :func:`fractal_histogram` makes for such widths.  Checks nothing the
+    caller has checked; a launch counts here (``.launches``)."""
+    n_bins = out.shape[0]
+    cluster, bits = cluster_layout(n_bins)
+    clusters = cluster_grid(keys.shape[0], _max_clusters(cluster, bits))
+    _build.check(_lib().fs_histogram_cluster(
+        keys.data_ptr(), keys.shape[0], out.data_ptr(), n_bins, cluster, bits,
+        clusters, _build.stream(keys.device)), "fractal_histogram_cluster")
+    _build.count_launch(fractal_histogram_cluster)
+
+
+fractal_histogram_cluster.launches = 0
 
 
 def sweep_groups(passes) -> Optional[tuple]:

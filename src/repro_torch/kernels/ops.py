@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_kernel as _flash)
 from repro_torch.kernels.fractal_histogram import (
     digit_histograms as _digit_hists, fractal_histogram as _hist,
+    fractal_histogram_cluster as _hist_cluster,
     fractal_histogram_digits as _hist_digits)
 from repro_torch.kernels.fractal_rank import (
     fractal_rank_digit as _rank_digit, fractal_rank_kernel as _rank,
@@ -43,13 +44,15 @@ __all__ = [
 KERNELS = {
     "fractal_histogram": _hist,
     "fractal_histogram_digits": _hist_digits,
+    "fractal_histogram_cluster": _hist_cluster,
     "fractal_rank_kernel": _rank,
     "fractal_rank_scatter_kernel": _rank_scatter,
     "fractal_reconstruct": _recon,
     "flash_attention_kernel": _flash,
 }
 #: the kernels of the sort path (K1-K4; "fractal_histogram" counts every
-#: K1 launch, "fractal_histogram_digits" its one-sweep launches too); K5
+#: K1 launch, "fractal_histogram_digits" its one-sweep launches and
+#: "fractal_histogram_cluster" its launches above 2**14 bins too); K5
 #: runs on the LM's prefill path
 SORT_KERNELS = ("fractal_histogram", "fractal_histogram_digits",
                 "fractal_rank_kernel", "fractal_rank_scatter_kernel",

@@ -20,6 +20,7 @@ from repro_torch.core import (CudaBackend, DigitPass, PlanExecutor,
                               TorchBackend, dispatch, fractal_argsort,
                               fractal_sort, fractal_sort_batched,
                               fractal_sort_pairs, make_sort_plan)
+from repro_torch.kernels import fractal_histogram as hist_mod
 from repro_torch.kernels import fractal_rank as rank_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel
@@ -322,10 +323,12 @@ def test_attn_apply_launches_the_kernel(cuda_device):
 
 
 @pytest.mark.parametrize("n_bins", [1, 2, 15, 16, 17, 32, 33, 256, 1 << 14,
-                                    (1 << 14) + 1, 1 << 16])
+                                    (1 << 14) + 1, 20_000, 3 * (1 << 14) + 3,
+                                    (1 << 16) - 1, 1 << 16])
 def test_histogram_unaligned_ragged_streams(rng, cuda_device, n_bins):
     """Register counters (<= 16 bins), shared sub-histograms (<= 2**14) and
-    global atomics, on streams that start 0-3 elements off a 16-byte
+    a cluster's slices (above; the last slice short where n_bins is not a
+    multiple of 2**14), on streams that start 0-3 elements off a 16-byte
     boundary and end ragged, with -1 and n_bins pads and carried counts."""
     for n in (1, 31, 4095, 4097, (1 << 20) + 37):
         for off in (0, 1, 2, 3):
@@ -345,12 +348,46 @@ def test_histogram_unaligned_ragged_streams(rng, cuda_device, n_bins):
 def test_histogram_skewed_streams(rng, cuda_device):
     """All keys in one bin, and zipf(1.2): every lane of a warp on one
     counter."""
-    for n_bins in (16, 256, 1 << 14, 1 << 16):
+    for n_bins in (16, 256, 1 << 14, 20_000, 3 * (1 << 14) + 3,
+                   (1 << 16) - 1, 1 << 16):
         for dist in ("zipf", "one_bin"):
             keys = torch.from_numpy(_digits(rng, (1 << 20) + 5, n_bins, dist)
                                     ).to(cuda_device)
             assert torch.equal(fractal_histogram(keys, n_bins),
                                ref.histogram_ref(keys, n_bins)), (n_bins, dist)
+
+
+@pytest.mark.parametrize("n_bins,cluster", [(1 << 14, False),
+                                            ((1 << 14) + 1, True),
+                                            (1 << 16, True)])
+def test_histogram_cluster_entry_only_above_2_14_bins(rng, cuda_device,
+                                                      monkeypatch, n_bins,
+                                                      cluster):
+    """Up to 2**14 bins K1 is the one ``fs_histogram`` launch; above, the
+    cluster entry alone (its capacity query aside): no kernel that adds a
+    key at a time into device memory.  Both launch counters agree."""
+    lib = hist_mod._lib()
+    called = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            called.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(hist_mod, "_lib", Recorder)
+    hist_mod._max_clusters.cache_clear()
+    keys = torch.from_numpy(_digits(rng, 300_001, n_bins, "uniform")
+                            ).to(cuda_device)
+    before = (fractal_histogram.launches,
+              hist_mod.fractal_histogram_cluster.launches)
+    got = fractal_histogram(keys, n_bins)
+    assert torch.equal(got, ref.histogram_ref(keys, n_bins))
+    assert (fractal_histogram.launches,
+            hist_mod.fractal_histogram_cluster.launches) == (
+        before[0] + 1, before[1] + cluster)
+    launches = [c for c in called if c != "fs_histogram_cluster_capacity"]
+    assert launches == (["fs_histogram_cluster"] if cluster
+                        else ["fs_histogram"])
 
 
 _SWEEP_PLANS = {

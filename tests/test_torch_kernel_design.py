@@ -1,4 +1,4 @@
-"""The numerics and host-side sizing of the redesigned K5 and K2, on the CPU.
+"""The numerics and host-side sizing of the redesigned K5, K2 and K1, on the CPU.
 
 K5's fp32 instance runs attention as 3xTF32 tensor-core products: each
 operand splits into big = tf32_rna(x) and small = tf32_rna(x - big), and
@@ -19,6 +19,15 @@ stream from zero starts, and rank = bin_start[d] - C[hi][lo] + the low
 rank at the key's slot.  The emulation is held bit-exact against the
 plain version and the reference's one-hot Pallas kernel (interpret mode),
 and its sizing helpers against their formulas.
+
+K1's cluster path (2**14 to 2**16 bins) is emulated the same way: the
+grid's threads walk the key stream in the kernel's order, every block of
+a cluster walks its cluster's share and adds the keys of its own slice,
+equal keys in a row of one thread as one run, and each block's non-zero
+counters are added onto the carried counts.  It is held bit-exact against the plain version, the
+reference's Pallas K1 (interpret mode) and, at 2**16 bins, the
+reference's plain ``histogram_ref``; its layout and grid helpers against
+their formulas.
 """
 
 import math
@@ -30,8 +39,15 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_kernel as jax_flash
+from repro.kernels.fractal_histogram import fractal_histogram as jax_histogram
 from repro.kernels.fractal_rank import fractal_rank_kernel as jax_rank_onehot
 from repro_torch.kernels import ref
+from repro_torch.kernels.fractal_histogram import (CLUSTER_SLICE_BITS,
+                                                   CLUSTER_THREADS,
+                                                   KEYS_PER_THREAD,
+                                                   SHARED_MAX_BINS,
+                                                   cluster_grid,
+                                                   cluster_layout)
 from repro_torch.kernels.fractal_rank import (LOOKBACK_MAX_BINS, LOOKBACK_TILE,
                                               WIDE_LO_BITS,
                                               lookback_status_bytes,
@@ -364,3 +380,209 @@ def test_wide_split_high_bins(n_bins, n_hi):
 def test_wide_rank_scratch_bytes(n, n_bins, nbytes):
     assert wide_rank_scratch_bytes(n, n_bins) == nbytes
     assert nbytes % 16 == 0
+
+
+# --- K1's cluster path above 2**14 bins ---------------------------------------
+
+
+def cluster_slices(n_bins: int) -> list:
+    """The bins each block of a cluster counts, in block order."""
+    cluster, bits = cluster_layout(n_bins)
+    return [min(1 << bits, n_bins - (r << bits)) for r in range(cluster)]
+
+
+def thread_streams(n: int, head: int, threads: int) -> list:
+    """The key positions each thread of a grid of ``threads`` visits, in
+    its order: for_each_key's 16-byte vectors past the ``head`` unaligned
+    keys, two a step (the second ``threads`` vectors on), then a head key
+    and a tail key."""
+    nvec = (n - head) // 4
+    tail = head + 4 * nvec
+    streams = []
+    for t in range(threads):
+        mine = []
+        for v in range(t, nvec, 2 * threads):
+            for u in (v, v + threads):
+                if u < nvec:
+                    mine += range(head + 4 * u, head + 4 * u + 4)
+        if t < head:
+            mine.append(t)
+        if t < n - tail:
+            mine.append(tail + t)
+        streams.append(mine)
+    return streams
+
+
+def cluster_histogram(keys: torch.Tensor, n_bins: int, init=None,
+                      clusters: int = 3, block_threads: int = 4,
+                      head: int = 0) -> tuple:
+    """The cluster path in plain torch: the stream dealt to ``clusters``
+    units of ``block_threads`` threads as for_each_key deals it; every
+    block of a cluster walks each of the unit's thread streams and adds
+    the valid keys of its own slice (key >> CLUSTER_SLICE_BITS is its
+    rank), equal keys in a row (its other keys between them aside) as one
+    run; then each block's non-zero counters are added onto ``init``.
+    Returns (counts, shared atomics, device atomics)."""
+    cluster, bits = cluster_layout(n_bins)
+    k = keys.to(torch.int64).tolist()
+    streams = thread_streams(len(k), head, clusters * block_threads)
+    slices = torch.zeros((clusters, cluster, 1 << bits), dtype=torch.int64)
+    shared = 0
+    for t, stream in enumerate(streams):
+        unit = t // block_threads
+        for rank in range(cluster):
+            runs = []
+            for key in (k[i] for i in stream):
+                if not 0 <= key < n_bins or key >> bits != rank:
+                    continue  # ends no run
+                if runs and runs[-1][0] == key:
+                    runs[-1][1] += 1
+                else:
+                    runs.append([key, 1])
+            for key, run in runs:
+                slices[unit, rank, key & ((1 << bits) - 1)] += run
+            shared += len(runs)
+    out = (torch.zeros(n_bins, dtype=torch.int64) if init is None
+           else init.to(torch.int64).clone())
+    flat = slices.view(clusters, -1)[:, :n_bins]
+    out += flat.sum(0)
+    return out.to(torch.int32), shared, int((flat != 0).sum())
+
+
+def _k1_keys(rng, n: int, n_bins: int, dist: str) -> np.ndarray:
+    """Digits uniform, zipf(1.2)-skewed or in one bin, with 2 % -1 pads and
+    2 % n_bins pads, and 1 % keys in [n_bins, 2**17)."""
+    if dist == "uniform":
+        d = rng.integers(0, n_bins, n)
+    elif dist == "zipf":
+        d = np.minimum(rng.zipf(1.2, n) - 1, n_bins - 1)
+    else:
+        d = np.full(n, rng.integers(0, n_bins))
+    d[rng.random(n) < 0.02] = -1
+    d[rng.random(n) < 0.02] = n_bins
+    d[rng.random(n) < 0.01] = rng.integers(n_bins, 1 << 17)
+    return d.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_bins", [(1 << 14) + 1, 20_000, 1 << 15])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_cluster_histogram_matches_plain_and_reference_kernel(n_bins, dist):
+    """One block a cluster (a slice of up to 2**15 bins, short below it),
+    with and without carried counts, against the plain version and the
+    reference's Pallas K1 (interpret mode, block 256)."""
+    rng = np.random.default_rng([n_bins, len(dist)])
+    keys = _k1_keys(rng, 2999, n_bins, dist)
+    init = rng.integers(0, 1000, n_bins).astype(np.int32)
+    tk = torch.from_numpy(keys)
+    for carried in (None, init):
+        pallas = np.asarray(jax_histogram(
+            jnp.asarray(keys), n_bins, block=256,
+            init=None if carried is None else jnp.asarray(carried)))
+        ti = None if carried is None else torch.from_numpy(carried)
+        np.testing.assert_array_equal(
+            ref.histogram_ref(tk, n_bins, init=ti).numpy(), pallas)
+        got, _, _ = cluster_histogram(tk, n_bins, init=ti, head=3)
+        np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+@pytest.mark.parametrize("n_bins", [3 * (1 << 14) + 3, (1 << 16) - 1,
+                                    1 << 16])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_cluster_histogram_at_2_16_bins(n_bins, dist):
+    """Two blocks a cluster (the second slice short below 2**16), against
+    the port's plain version and the reference's plain ``histogram_ref``
+    (its one-hot kernel would hold a (block, n_bins) tile), which counts
+    in-range keys only."""
+    rng = np.random.default_rng([n_bins, len(dist), 1])
+    keys = _k1_keys(rng, 3000, n_bins, dist)
+    init = rng.integers(0, 1000, n_bins).astype(np.int32)
+    valid = keys[(keys >= 0) & (keys < n_bins)]
+    tk = torch.from_numpy(keys)
+    for carried in (None, init):
+        want = np.asarray(jref.histogram_ref(jnp.asarray(valid), n_bins))
+        if carried is not None:
+            want = want + carried
+        ti = None if carried is None else torch.from_numpy(carried)
+        np.testing.assert_array_equal(
+            ref.histogram_ref(tk, n_bins, init=ti).numpy(), want)
+        got, _, _ = cluster_histogram(tk, n_bins, init=ti,
+                                      head=2 if carried is None else 0)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dist,most", [("uniform", 1.0), ("zipf", 1.0),
+                                       ("one_bin", 0.05)])
+def test_cluster_runs_and_flush_atomics(dist, most):
+    """Runs of equal keys cut a skewed digit's shared atomics (one bin:
+    one atomic a thread), and the flush's device atomics (one a non-zero
+    counter of a cluster) never outnumber the valid keys."""
+    rng = np.random.default_rng(len(dist))
+    n_bins = 1 << 16
+    keys = _k1_keys(rng, 3000, n_bins, dist)
+    valid = int(((keys >= 0) & (keys < n_bins)).sum())
+    got, shared, device = cluster_histogram(torch.from_numpy(keys), n_bins,
+                                            clusters=2, block_threads=8)
+    np.testing.assert_array_equal(
+        got.numpy(), ref.histogram_ref(torch.from_numpy(keys), n_bins).numpy())
+    assert shared <= most * valid
+    assert device <= shared <= valid
+
+
+def test_thread_streams_visit_every_key_once():
+    """for_each_key's order covers the head, the vector body (ragged in
+    its last step) and the tail, each key once."""
+    for n, head, threads in ((0, 0, 4), (3, 3, 4), (37, 1, 2), (300, 2, 7)):
+        streams = thread_streams(n, min(head, n), threads)
+        assert sorted(i for s in streams for i in s) == list(range(n))
+
+
+@pytest.mark.parametrize("n_bins,cluster,slices", [
+    ((1 << 14) + 1, 1, [(1 << 14) + 1]),
+    (20_000, 1, [20_000]),
+    (1 << 15, 1, [1 << 15]),
+    (3 * (1 << 14) + 3, 2, [1 << 15, (1 << 14) + 3]),
+    ((1 << 16) - 1, 2, [1 << 15, (1 << 15) - 1]),
+    (1 << 16, 2, [1 << 15, 1 << 15]),
+])
+def test_cluster_layout(n_bins, cluster, slices):
+    """Blocks a cluster and each block's bins: a 2**15-counter slice a
+    block (128 KiB of shared memory: one block an SM beside the
+    kernel's 1024 threads), only the last slice short."""
+    assert SHARED_MAX_BINS == 1 << 14 and CLUSTER_SLICE_BITS == 15
+    assert cluster_layout(n_bins) == (cluster, CLUSTER_SLICE_BITS)
+    assert cluster_slices(n_bins) == slices
+    assert sum(slices) == n_bins
+    assert 4 << CLUSTER_SLICE_BITS == 128 * 1024
+    assert ((n_bins - 1) >> CLUSTER_SLICE_BITS) == cluster - 1
+
+
+@pytest.mark.parametrize("n_bins", [1, 16, 1 << 14, (1 << 16) + 1])
+def test_cluster_layout_only_above_the_shared_path(n_bins):
+    with pytest.raises(ValueError):
+        cluster_layout(n_bins)
+
+
+PER_CLUSTER = CLUSTER_THREADS * KEYS_PER_THREAD  # 16,384 keys
+
+
+@pytest.mark.parametrize("n,max_clusters,clusters", [
+    (1, 66, 1),
+    (PER_CLUSTER, 66, 1),
+    (PER_CLUSTER + 1, 66, 2),
+    # the device store's partition sorts: 254,200 keys, 16 clusters
+    (254_200, 66, 16),
+    # the distributed pass: one wave
+    (1 << 27, 66, 66),
+    (1 << 27, 132, 132),
+])
+def test_cluster_grid(n, max_clusters, clusters):
+    """One wave at most, and at least CLUSTER_THREADS * KEYS_PER_THREAD
+    keys a cluster (each of its blocks reads all of them), so a block's
+    flush is no more device atomics than its keys."""
+    assert cluster_grid(n, max_clusters) == clusters
+    assert clusters == 1 or n > (clusters - 1) * PER_CLUSTER
+
+
+def test_cluster_grid_refuses_a_card_without_room():
+    with pytest.raises(RuntimeError):
+        cluster_grid(1 << 20, 0)
