@@ -4,8 +4,9 @@ NVIDIA GPU and check it: the in-memory sort, the llama3.2-1b serving
 path (prefill through the flash-attention kernel, then the decode loop
 with the fractal-sort scheduler), the query layer on TPC-H-shaped
 tables, the out-of-core stream (external sort and streaming queries
-of host data under a device byte budget), and the distributed sort and
-the device store on a one-rank NCCL group.
+of host data under a device byte budget), the distributed sort and the
+device store on a one-rank NCCL group, and the plan autotuner and the
+paper's baseline sorts.
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
                           [--query-log2n 26] [--stream-log2n 24] [--profile]
@@ -179,14 +180,43 @@ then, on a one-rank process group (NCCL; a file rendezvous, no network):
    the in-memory operator; fatal if the budget's peak or the card's
    allocation rise passes the budget, or unless K1 and K2 launched.
    Phases 15 and 16 form the kernel table's "distributed" and
-   "device_store" launch columns.
+   "device_store" launch columns;
+
+then, with the sort data freed:
+
+17. autotune and baselines.  The plan sweep (``autotune_plan(backend=
+   "cuda")``, measured at min(n, 2**18) keys) at the reference's tune
+   points (2**12, 16), (2**15, 32), (2**17, 32), (2**15, 9), (2**15,
+   16) and at n = 2**log2n, p = 32 and 16, into a cache file of its
+   own: each point's plan, engine, rank kernel (K2 or K3, by its launch
+   counts) and µs, and the winner; fatal unless a second call at each
+   point measures nothing (``autotune.hit`` +1).  Every grid plan at
+   2**log2n keys, p = 32 and 16, bit-exact against ``torch.sort`` and
+   timed, with its rank kernel at that size and the rank of the 2**18
+   winner among them.  With ``REPRO_TORCH_AUTOTUNE_CACHE`` at the filled
+   cache: an all-defaults p = 32 sort must launch what the pinned winner
+   launches (and hit the cache), one ORDER BY of a 16-bit code over 2**15
+   rows must consult the tuner once and hit, and one ``external_sort``
+   of 2**24 host keys must consult it once for each (length, bits)
+   bucket, each bit-exact.  The host's µs for the serve scheduler's
+   all-defaults ``fractal_argsort`` with and without the consult.  Then
+   ``lsd_radix_sort`` (radix 8 and 16), ``bitonic_sort``, ``torch_sort``
+   and ``fractal_sort`` with the static and the tuned plan at 2**log2n
+   keys, p = 32 and 16, bit-exact, with ms, the analytic bytes of their
+   ``*_stats`` model, bytes per ms (none for ``torch_sort``: its
+   merge-sort model is not what ``torch.sort`` runs on the card; any
+   other above the card's memory rate is fatal) and the ratio of each
+   one's effective bandwidth (useful bytes over time) to
+   fractal_sort's.  Its launches form the kernel table's
+   "autotune_baselines" column.  Phases 1-16 resolve their plans from
+   an empty cache in a temporary directory, whatever the machine holds.
 
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
-11, 13-16).
+11, 13-17).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -194,6 +224,7 @@ The last line of output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import datetime
@@ -206,6 +237,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -336,26 +368,41 @@ def attention_bound_ms(B: int, Sq: int, Skv: int, H: int, hd: int,
             route, max(flops / FP32_FMA_FLOPS * 1e3, byte_ms))
 
 
-def kernel_names(fn, tries: int = 3):
+# torch.cuda._sleep's kernel: a traced call is bracketed by one on each side
+TRACE_MARKER = "spin_kernel"
+
+
+def kernel_names(fn, tries: int = 5, partial_ok: bool = False):
     """The device kernels one warm call of ``fn`` runs (torch.profiler), or
-    None where the profiler traced no device activity in ``tries`` warm
-    calls (CUPTI's tracing is not always available to the process)."""
+    None where no trace of ``tries`` warm calls was whole.  Each traced
+    call is bracketed by a marker kernel on each side, and a trace that
+    lacks either marker is tried again: CUPTI's tracing is not always
+    available to the process, and a trace may drop the kernels launched
+    just after it starts.  ``partial_ok``: with no whole trace, the first
+    trace that holds any of ``fn``'s kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    partial = None
     for i in range(tries):
         activities = [ProfilerActivity.CUDA] + (
             [ProfilerActivity.CPU] if i % 2 else [])
         with profile(activities=activities) as prof:
+            torch.cuda._sleep(1)
             fn()
+            torch.cuda._sleep(1)
             torch.cuda.synchronize()
         names = [ev.key for ev in prof.key_averages()
                  if "CUDA" in str(ev.device_type) for _ in range(ev.count)]
-        if names:
-            return names
-        log(f"[profiler] try {i + 1} of {tries} traced no device kernel")
-    return None
+        own = [k for k in names if TRACE_MARKER not in k]
+        if len(names) - len(own) == 2:
+            return own
+        partial = partial or own or None
+        log(f"[profiler] try {i + 1} of {tries} traced {len(own)} of the "
+            f"call's device kernels and {len(names) - len(own)} of the 2 "
+            f"markers: not whole")
+    return partial if partial_ok else None
 
 
 def check_k2_wide(fn, what: str, exact: bool = True) -> None:
@@ -364,12 +411,12 @@ def check_k2_wide(fn, what: str, exact: bool = True) -> None:
     also all four of them (prep, two look-back levels, unstage) once each.
     On a process group the profiler has traced no kernel of a call, or
     dropped the last one, so there the trace is held to the path's
-    kernels only.  Where the profiler traces no device kernel, it is
-    logged as not checked."""
-    names = kernel_names(fn)
+    kernels only.  Where the profiler gives no whole trace, it is logged
+    as not checked."""
+    names = kernel_names(fn, partial_ok=not exact)
     if names is None:
         log(f"[kernels] one K2 call at {what}: not checked, the profiler "
-            f"traced no device kernel")
+            f"gave no whole trace")
         return
     log(f"[kernels] one K2 call at {what} runs {json.dumps(names)}")
     found = [sum(w in k for k in names) for w in K2_WIDE_KERNELS]
@@ -385,12 +432,12 @@ def check_k2_wide(fn, what: str, exact: bool = True) -> None:
 def check_k1_wide(fn, what: str) -> None:
     """Fail unless one warm call of ``fn``, K1 above 2**14 bins, runs the
     cluster kernel once and no other histogram kernel (the output's fill
-    aside).  Logged as not checked where the profiler traces no device
-    kernel."""
+    aside).  Logged as not checked where the profiler gives no whole
+    trace."""
     names = kernel_names(fn)
     if names is None:
         log(f"[kernels] one K1 call at {what}: not checked, the profiler "
-            f"traced no device kernel")
+            f"gave no whole trace")
         return
     log(f"[kernels] one K1 call at {what} runs {json.dumps(names)}")
     k1 = [k for k in names if "histogram" in k]
@@ -1698,6 +1745,330 @@ def distributed_phases(args, dev, card: str, path_counts: dict) -> tuple:
                        "fractal_histogram": k1_wide}
 
 
+# The reference's tune points (benchmarks/bench_sortplan.py TUNE_POINTS):
+# the sort points, the wide acceptance point and the query layer's codec
+# widths; phase 17 adds n = 2**log2n at p = 32 and 16
+TUNE_POINTS = ((1 << 12, 16), (1 << 15, 32), (1 << 17, 32), (1 << 15, 9),
+               (1 << 15, 16))
+
+
+def rank_kernels(delta: dict) -> str:
+    """The rank kernels a launch-count delta shows: "K2", "K3" or both."""
+    names = [k for k, name in (("K2", "fractal_rank_kernel"),
+                               ("K3", "fractal_rank_scatter_kernel"))
+             if delta.get(name)]
+    return "+".join(names) or "none"
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def tune_phases(args, dev, card: str, path_counts: dict,
+                tune_dir: str) -> list:
+    """Phase 17: the plan autotuner and the paper's baseline sorts on the
+    card.  Sweeps the plan grid at the reference's tune points and at
+    n = 2**log2n into a cache in ``tune_dir``, times every grid plan at
+    n = 2**log2n, checks that the all-defaults sort, one ORDER BY and one
+    external sort resolve through the filled cache, and times the
+    baselines beside fractal_sort.  Adds
+    ``path_counts["autotune_baselines"]``; returns e2e rows."""
+    from repro_torch import query as Q
+    from repro_torch import stream as S
+    from repro_torch.core import autotune as AT
+    from repro_torch.core import (bitonic_sort, bitonic_sort_stats,
+                                  comparison_sort_stats, fractal_argsort,
+                                  fractal_sort,
+                                  fractal_sort_stats, lsd_radix_sort,
+                                  make_sort_plan, radix_sort_stats,
+                                  torch_sort)
+    from repro_torch.core.fractal_tree import u32_to_int64
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    from repro_torch.stream import external as EXT
+
+    counts = {k: 0 for k in ops.KERNELS}
+
+    def launched(fn):
+        """``(fn(), its kernel launches)``; the launches add to this
+        path's."""
+        ops.reset_launch_counts()
+        out = fn()
+        delta = {k: c for k, c in ops.launch_counts().items() if c}
+        for k, c in delta.items():
+            counts[k] += c
+        return out, delta
+
+    def same(what, got: torch.Tensor, want: torch.Tensor):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{what}: differs from torch.sort")
+
+    t_phase = time.perf_counter()
+    hit = metrics.counter("autotune.hit")
+    n = 1 << args.log2n
+    cache = os.path.join(tune_dir, "tuned.json")
+
+    # -- 17a. the sweep, each point's rank kernel by its launch counts --------
+    measured = []  # per measured grid point: its rank kernels
+    measure = AT._measure_plan
+
+    def counted_measure(n_meas, p, plan, backend, repeat=AT._MEASURE_REPEAT):
+        before = ops.launch_counts()
+        wall = measure(n_meas, p, plan, backend, repeat)
+        measured.append(rank_kernels(launch_delta(before,
+                                                  ops.launch_counts())))
+        return wall
+
+    AT._measure_plan = counted_measure
+    sweeps = {}
+    try:
+        for pn, pp in TUNE_POINTS + ((n, 32), (n, 16)):
+            measured.clear()
+            t0 = time.perf_counter()
+            won, _ = launched(lambda: AT.autotune_plan(
+                pn, pp, backend="cuda", cache_path=cache))
+            entry = AT._load(cache)[AT.cache_key("cuda", pp, None,
+                                                 AT.shape_bucket(pn))]
+            grid = AT.candidate_grid(pp)
+            if len(measured) != len(grid) or len(entry["sweep"]) != len(grid):
+                raise AssertionError(f"sweep at n={pn} p={pp} measured "
+                                     f"{len(measured)} of {len(grid)} points")
+            points = [{"w": s["max_bins_log2"], "engine": s["engine"],
+                       "plan": s["plan"], "kernel": k,
+                       "us": s["wall_s"] * 1e6}
+                      for s, k in zip(entry["sweep"], measured)]
+            sweeps[(pn, pp)] = (entry, points)
+            log(f"[tune] sweep n={pn} p={pp} (measured at "
+                f"n={entry['n_measured']}, {time.perf_counter() - t0:.1f} s): "
+                f"winner {won.describe()} w={entry['max_bins_log2']} "
+                f"{entry['engine']}; points {json.dumps(points)}")
+            # a second call at the point measures nothing
+            measured.clear()
+            hits = hit.value
+            again = AT.autotune_plan(pn, pp, backend="cuda",
+                                     cache_path=cache)
+            if measured or hit.value != hits + 1 or again != won:
+                raise AssertionError(
+                    f"a second call at n={pn} p={pp} measured "
+                    f"{len(measured)} points, hits +{hit.value - hits}")
+    finally:
+        AT._measure_plan = measure
+    log(f"[tune] a second call at each of {len(sweeps)} points measured "
+        f"nothing (autotune.hit +1 each)")
+
+    # -- 17b. every grid plan at n = 2**log2n ---------------------------------
+    rng = phase_rng(args.seed, 17)
+    u32 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    data = {32: torch.from_numpy(u32).to(dev),
+            16: torch.from_numpy((u32 >> 16).astype(np.int32)).to(dev)}
+    del u32
+    want = {p: torch.sort(u32_to_int64(k)).values for p, k in data.items()}
+    full = {}
+    for p, keys in data.items():
+        entry, points = sweeps[(n, p)]
+        rows = []
+        for pt in points:
+            plan = make_sort_plan(n, p, max_bins_log2=pt["w"],
+                                  engine=pt["engine"])
+            out, delta = launched(lambda: fractal_sort(keys, p, plan=plan))
+            same(f"fractal_sort p={p} plan {plan.describe()} {pt['engine']}",
+                 u32_to_int64(out), want[p])
+            del out
+            rows.append({"w": pt["w"], "engine": pt["engine"],
+                         "plan": plan.describe(),
+                         "kernel_full": rank_kernels(delta),
+                         "ms_full": cuda_ms(
+                             lambda: fractal_sort(keys, p, plan=plan), 1, 3),
+                         "kernel_measured": pt["kernel"],
+                         "us_measured": pt["us"]})
+        by_ms = sorted(rows, key=lambda r: r["ms_full"])
+        rank = 1 + [(r["w"], r["engine"]) for r in by_ms].index(
+            (entry["max_bins_log2"], entry["engine"]))
+        full[p] = {"rows": rows, "winner_rank": rank,
+                   "fastest": f"w={by_ms[0]['w']} {by_ms[0]['engine']}"}
+        log(f"[tune] n=2**{args.log2n} p={p}: every grid plan bit-exact; "
+            f"the winner at n={entry['n_measured']} (w="
+            f"{entry['max_bins_log2']} {entry['engine']}) ranks {rank} of "
+            f"{len(rows)} at full size, fastest {full[p]['fastest']}; "
+            f"{json.dumps(rows)}")
+
+    # -- 17c. the defaults resolve through the filled cache -------------------
+    os.environ[AT.CACHE_ENV] = cache
+    keys = data[32]
+    entry = sweeps[(n, 32)][0]
+    won = make_sort_plan(n, 32, max_bins_log2=entry["max_bins_log2"],
+                         engine=entry["engine"])
+    hits = hit.value
+    out, by_default = launched(lambda: fractal_sort(keys, 32))
+    if hit.value != hits + 1:
+        raise AssertionError("the all-defaults sort did not hit the cache")
+    same("fractal_sort p=32, all defaults", u32_to_int64(out), want[32])
+    _, pinned = launched(lambda: fractal_sort(keys, 32, plan=won))
+    if by_default != pinned:
+        raise AssertionError(f"the all-defaults sort launched {by_default}, "
+                             f"the winner's plan {pinned}")
+    log(f"[tune] all-defaults fractal_sort p=32: the cached winner "
+        f"{won.describe()} ({entry['engine']}), bit-exact, launches "
+        f"{json.dumps(by_default)} as the pinned winner's")
+    del out
+    # ORDER BY a 16-bit code: 2**15 rows resolve at the (2**15, 16) point
+    m = 1 << 15
+    col = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, m)
+                           .astype(np.int32)).to(dev)
+    table = Q.Table({"k": col, "row": torch.arange(m, dtype=torch.int32,
+                                                   device=dev)}, device=dev)
+    hits, consults = hit.value, AT.consult_count()
+    got, _ = launched(lambda: Q.order_by(table, "k",
+                                         codecs={"k": Q.IntCodec(16)}))
+    same("order_by IntCodec(16)", got.column("row").long(),
+         torch.argsort(col, stable=True))
+    if AT.consult_count() != consults + 1 or hit.value != hits + 1:
+        raise AssertionError(
+            f"order_by consulted the tuner {AT.consult_count() - consults} "
+            f"times with {hit.value - hits} hits; expected one hit")
+    log(f"[tune] order_by IntCodec(16) of {m} rows: bit-exact, one tuner "
+        f"consult, a hit at the (2**15, 16) point")
+    # an external sort consults the tuner once per (length, bits) bucket
+    n24 = min(n, 1 << 24)
+    host = data[32][:n24].cpu().numpy()
+    budget = S.MemoryBudget(4 * n24 // 8)
+    asked = []
+    resolve = EXT.tuned_plan
+
+    def recording(n_, p_, backend, **kw):
+        asked.append((n_, p_, backend))
+        return resolve(n_, p_, backend=backend, **kw)
+
+    EXT.tuned_plan = recording
+    try:
+        consults = AT.consult_count()
+        store = S.RunStore()
+        try:
+            chunks, _ = launched(lambda: list(S.external_sort(
+                S.ArraySource(host, budget.rows(EXT.row_cost_bytes(1))), 32,
+                budget, store=store, device=dev)))
+        finally:
+            store.close()
+    finally:
+        EXT.tuned_plan = resolve
+    got = torch.cat([c.view(torch.int32) for c in chunks]).to(dev)
+    same("external_sort 2**24", u32_to_int64(got),
+         torch.sort(u32_to_int64(data[32][:n24])).values)
+    if (not asked or len(set(asked)) != len(asked)
+            or AT.consult_count() - consults != len(asked)
+            or {b for _, _, b in asked} != {"cuda"}):
+        raise AssertionError(f"external_sort consulted the tuner "
+                             f"{AT.consult_count() - consults} times over "
+                             f"buckets {asked}; expected once a bucket")
+    log(f"[tune] external_sort of 2**{n24.bit_length() - 1} host keys: "
+        f"bit-exact, {len(chunks)} chunks, one tuner consult for each of "
+        f"{len(asked)} buckets {sorted(set(asked))}")
+    del chunks, host, got
+    # what the consult costs the host: the serve scheduler's call (an
+    # all-defaults fractal_argsort of a short queue of 16-bit keys, to the
+    # host) against the same call with the plan the consult resolves
+    # pinned, in alternating rounds; and the consult alone against the
+    # static plan's construction
+    queue = torch.from_numpy(rng.integers(0, 1 << 16, 8).astype(np.int32)
+                             ).to(dev)
+    static_q = make_sort_plan(queue.numel(), 16)
+    if AT.tuned_plan(queue.numel(), 16, backend="cuda") != static_q:
+        raise AssertionError("the scheduler's sort resolved a cached plan")
+
+    def host_us(fn, calls: int) -> float:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    by_default, pinned = [], []
+    for _ in range(5):
+        by_default.append(host_us(
+            lambda: fractal_argsort(queue, 16).cpu(), 200))
+        pinned.append(host_us(
+            lambda: fractal_argsort(queue, 16, plan=static_q).cpu(), 200))
+    consult_us = host_us(
+        lambda: AT.tuned_plan(queue.numel(), 16, backend="cuda"), 10000)
+    static_us = host_us(lambda: make_sort_plan(queue.numel(), 16), 10000)
+    log(f"[tune] consult cost on the host: all-defaults fractal_argsort of "
+        f"{queue.numel()} 16-bit keys to the host "
+        f"{statistics.median(by_default):.2f} µs a call, with the plan "
+        f"pinned {statistics.median(pinned):.2f} µs (median of 5 rounds "
+        f"of 200, alternating); tuned_plan alone {consult_us:.2f} µs, "
+        f"make_sort_plan {static_us:.2f} µs (10000 calls each)")
+
+    # -- 17d. the baselines beside fractal_sort -------------------------------
+    e2e = []
+    for p, keys in data.items():
+        static = make_sort_plan(n, p)
+        tuned = AT.tuned_plan(n, p, backend="cuda")
+        runs = [
+            ("lsd_radix_sort radix 8", lambda: lsd_radix_sort(keys, p, 8),
+             radix_sort_stats(n, p, 8)),
+            ("lsd_radix_sort radix 16", lambda: lsd_radix_sort(keys, p, 16),
+             radix_sort_stats(n, p, 16)),
+            ("bitonic_sort", lambda: bitonic_sort(keys),
+             bitonic_sort_stats(n, p)),
+            ("torch_sort", lambda: torch_sort(keys),
+             comparison_sort_stats(n, p)),
+            (f"fractal_sort static {static.describe()}",
+             lambda: fractal_sort(keys, p, plan=static),
+             fractal_sort_stats(n, p, plan=static)),
+            (f"fractal_sort tuned {tuned.describe()} "
+             f"{tuned.passes[-1].engine}", lambda: fractal_sort(keys, p),
+             fractal_sort_stats(n, p, plan=tuned)),
+        ]
+        useful = 2 * n * (4 if p > 16 else 2)
+        rows = []
+        for name, fn, stats in runs:
+            same(f"{name} p={p}", u32_to_int64(launched(fn)[0]), want[p])
+            ms = cuda_ms(fn, 1, 3)
+            rate = stats.bytes_total / ms
+            if name == "torch_sort":
+                # comparison_sort_stats charges a merge sort's log2 n
+                # passes; torch.sort on the card is a radix sort of a few
+                # passes, so that model's bytes over this time are no
+                # bandwidth (they exceed the card's memory rate)
+                rate = None
+            elif rate > HBM_BYTES_PER_S / 1e3:
+                raise AssertionError(
+                    f"{name} p={p}: the model's bytes move at {rate:.4g} "
+                    f"B/ms, over the card's memory rate: the model "
+                    f"over-counts what runs")
+            rows.append({"name": f"{name} p={p}", "n": n, "ms": ms,
+                         "analytic_bytes": stats.bytes_total,
+                         "analytic_bytes_per_ms": rate,
+                         "useful_bytes_per_ms": useful / ms,
+                         "analytic_b_eff": useful / stats.bytes_total})
+        fr_static, fr_tuned = rows[-2]["ms"], rows[-1]["ms"]
+        for row in rows:
+            # effective bandwidth (useful bytes over time) against
+            # fractal_sort's: the paper's Fig. 10 measure on this card
+            row["eff_bw_vs_fractal_static"] = fr_static / row["ms"]
+            row["eff_bw_vs_fractal_tuned"] = fr_tuned / row["ms"]
+            log(f"[baseline] bit-exact; {json.dumps(row)}")
+        e2e += rows
+        del want[p]
+
+    path_counts["autotune_baselines"] = counts
+    log(f"[launches] autotune / baselines path (phase 17 in "
+        f"{time.perf_counter() - t_phase:.1f} s): {json.dumps(counts)}")
+    for k in ops.SORT_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"the autotune / baselines path launched "
+                                 f"no {k}")
+    e2e.append({"name": "autotune winners",
+                "sweeps": {f"n={pn} p={pp}": f"w={e['max_bins_log2']} "
+                           f"{e['engine']}"
+                           for (pn, pp), (e, _) in sweeps.items()},
+                "rank_at_full_size": {f"p={p}": v["winner_rank"]
+                                      for p, v in full.items()},
+                "fastest_at_full_size": {f"p={p}": v["fastest"]
+                                         for p, v in full.items()}})
+    return e2e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1722,6 +2093,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, str(ROOT / "src"))
+    # phases 1-16 resolve their plans from an empty autotune cache, whatever
+    # cache the machine holds; phase 17 fills its own in the same directory
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tune_dir,
+                                                            "empty.json")
     from repro_torch.core import (exclusive_cumsum, fractal_argsort,
                                   fractal_sort, fractal_sort_pairs,
                                   make_sort_plan)
@@ -2035,7 +2412,7 @@ def main() -> int:
                              f"counter; expected the one sweep")
     if names is None:
         log(f"[launches] one warm p=32 sort: counters {json.dumps(warm)}; "
-            f"the profiler traced no device kernel, so the counter alone "
+            f"the profiler gave no whole trace, so the counter alone "
             f"vouches for the one K1 sweep")
     else:
         ours = [m.group(1) for m in (
@@ -2138,7 +2515,7 @@ def main() -> int:
     names = kernel_names(lambda: fractal_rank_kernel(d16, s16, 16))
     if names is None:
         log(f"[kernels] one K2 call at n=2**{args.log2n}, 16 bins: not "
-            f"checked, the profiler traced no device kernel")
+            f"checked, the profiler gave no whole trace")
     else:
         own = [k for k in names
                if "FillFunctor" not in k and "emset" not in k]
@@ -2233,9 +2610,12 @@ def main() -> int:
     dist_e2e, dist_errs, dist_shapes = distributed_phases(args, dev, card,
                                                           path_counts)
     e2e += dist_e2e
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e += tune_phases(args, dev, card, path_counts, tune_dir)
 
     # every kernel launched on a main path (sort, prefill, serve, query,
-    # stream, distributed, device store)
+    # stream, distributed, device store, autotune / baselines)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "

@@ -52,6 +52,18 @@ from repro_torch.core.fractal_sort import (
     reconstruct,
     resolve_device,
 )
+from repro_torch.core.autotune import (
+    autotune_plan,
+    tuned_plan,
+)
+from repro_torch.core.baselines import (
+    bitonic_sort,
+    bitonic_sort_stats,
+    comparison_sort_stats,
+    lsd_radix_sort,
+    radix_sort_stats,
+    torch_sort,
+)
 from repro_torch.core.distributed import (
     distributed_fractal_argsort,
     distributed_fractal_sort,

@@ -18,7 +18,8 @@ This module holds
 * :func:`reconstruct` (Algorithm 5 with torch ops);
 * the public sorts :func:`fractal_sort`, :func:`fractal_sort_pairs`,
   :func:`fractal_argsort` and the streaming :func:`fractal_sort_batched`.
-  Each resolves a plan and hands it to a
+  Each resolves a plan (with all defaults, the autotune cache's winner
+  for the pass backend, else the static plan) and hands it to a
   :class:`~repro_torch.core.executor.PlanExecutor` over
   :class:`~repro_torch.core.executor.CudaBackend` (the hand-written
   kernels) on a CUDA device or
@@ -40,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import fractal_tree as ft
+from repro_torch.core.autotune import tuned_plan
 from repro_torch.core.executor import CudaBackend, PlanExecutor, TorchBackend
 from repro_torch.core.sort_plan import SortPlan, make_sort_plan, rank_chunk_len
 
@@ -412,15 +414,20 @@ def make_backend(backend: Optional[str], device: torch.device, batch: int = 1024
 
 
 def _resolve_plan(n: int, p: int, l_n: Optional[int],
-                  max_bins_log2: Optional[int],
-                  plan: Optional[SortPlan]) -> SortPlan:
-    """An explicit ``plan`` wins; otherwise the static plan (there is no
-    autotune cache in this package, so all-defaults is
-    ``make_sort_plan(n, p)``)."""
+                  max_bins_log2: Optional[int], plan: Optional[SortPlan],
+                  backend: str) -> SortPlan:
+    """Plan resolution shared by every entry point: an explicit ``plan``
+    wins; explicit ``l_n``/``max_bins_log2`` build the static plan;
+    all-defaults consults the autotune cache for ``backend``, the pass
+    backend that runs the plan (:func:`~repro_torch.core.autotune.
+    tuned_plan`: never measures, and the static plan until a sweep has
+    recorded a winner)."""
     if plan is not None:
         if plan.p != p:
             raise ValueError(f"plan is for p={plan.p}, sort asked p={p}")
         return plan
+    if l_n is None and max_bins_log2 is None:
+        return tuned_plan(n, p, backend=backend)
     return make_sort_plan(n, p, l_n=l_n, max_bins_log2=max_bins_log2)
 
 
@@ -432,7 +439,8 @@ def fractal_sort(keys, p: int, l_n: Optional[int] = None, batch: int = 1024,
     bounded-width stable LSD digit passes plus one fractal MSD pass.
     ``max_bins_log2`` caps per-pass bins; ``plan`` pins an exact plan."""
     keys = to_device(keys, device)
-    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan)
+    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
+                         backend_name(backend, keys.device))
     out = PlanExecutor(make_backend(backend, keys.device, batch)).run(keys, plan)
     return out if out is keys else _as_keys_dtype(out, p)
 
@@ -447,7 +455,8 @@ def fractal_sort_pairs(keys, values, p: int, l_n: Optional[int] = None,
     rebuilt from bin positions.  Stable: equal keys keep arrival order."""
     keys = to_device(keys, device)
     values = torch.as_tensor(values).to(keys.device)
-    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan)
+    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
+                         backend_name(backend, keys.device))
     out, vals = PlanExecutor(make_backend(backend, keys.device, batch)
                              ).run_pairs(keys, values, plan)
     return (out if out is keys else _as_keys_dtype(out, p)), vals
@@ -463,7 +472,8 @@ def fractal_argsort(keys, p: int, batch: int = 1024,
     if p > 32:
         raise ValueError("argsort covers p <= 32 via the digit plan")
     keys = to_device(keys, device)
-    plan = _resolve_plan(keys.shape[0], p, None, max_bins_log2, plan)
+    plan = _resolve_plan(keys.shape[0], p, None, max_bins_log2, plan,
+                         backend_name(backend, keys.device))
     return PlanExecutor(make_backend(backend, keys.device, batch)
                         ).run_argsort(keys, plan)
 
@@ -480,6 +490,7 @@ def fractal_sort_batched(keys, p: int, num_batches: int,
     grouped-trailing passes order the trailing bits in place.  Returns
     ``(sorted_keys, per-slice histograms)``."""
     keys = to_device(keys, device)
-    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan)
+    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
+                         backend_name(backend, keys.device))
     return PlanExecutor(make_backend(backend, keys.device, batch)
                         ).run_streaming(keys, plan, num_batches)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fractal_tree import as_u32_bits
-from repro_torch.core.sort_plan import make_sort_plan
+from repro_torch.core.autotune import tuned_plan
 
 __all__ = [
     "Codec",
@@ -104,13 +104,13 @@ class Codec:
     def num_words(self) -> int:
         return len(word_widths(self.bits))
 
-    def word_plans(self, n: int) -> tuple:
+    def word_plans(self, n: int, backend: str) -> tuple:
         """One sort plan per code word for an ``n``-row column, each
-        sized to that word's bit width.  The reference consults its
-        autotune cache here; this package has no autotuner yet, so every
-        word gets the static plan (``make_sort_plan``), which is what the
-        reference's ``tuned_plan`` returns without a cache entry."""
-        return tuple(make_sort_plan(n, w) for w in word_widths(self.bits))
+        sized to that word's bit width and resolved through the autotune
+        cache of the pass backend ``backend``
+        (:func:`~repro_torch.core.autotune.tuned_plan`: never measures)."""
+        return tuple(tuned_plan(n, w, backend=backend)
+                     for w in word_widths(self.bits))
 
     def prepare(self, col):
         """The column as tensors ready for :meth:`encode_fn` (bitcast or

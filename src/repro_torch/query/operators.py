@@ -45,10 +45,11 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.core.autotune import tuned_plan
 from repro_torch.core.executor import PlanExecutor
 from repro_torch.core.fractal_sort import backend_name, make_backend
 from repro_torch.core.fractal_tree import as_u32_bits
-from repro_torch.core.sort_plan import SortPlan, make_sort_plan
+from repro_torch.core.sort_plan import SortPlan
 from repro_torch.obs import metrics, trace
 from repro_torch.query.codec import (
     _SIGN,
@@ -179,13 +180,13 @@ def active_words(bits: int, low_bits: Optional[int] = None,
     return tuple(active)
 
 
-def _resolve_plans(n: int, active, plans):
-    """Per-active-word plans: caller-pinned, or the static plan of each
-    active word's width.  The reference consults its autotune cache here
-    (``tuned_plan``); this package has no autotuner yet, and without a
-    cache entry ``tuned_plan`` is ``make_sort_plan(n, bits)``."""
+def _resolve_plans(n: int, active, plans, backend: str):
+    """Per-active-word plans: caller-pinned, or one autotune-cache consult
+    per active word for the pass backend ``backend`` that runs them
+    (:func:`~repro_torch.core.autotune.tuned_plan`)."""
     if plans is None:
-        plans = tuple(make_sort_plan(n, eff) for _, eff in active)
+        plans = tuple(tuned_plan(n, eff, backend=backend)
+                      for _, eff in active)
     if len(plans) != len(active):
         raise ValueError(f"{len(active)} active words need {len(active)} "
                          f"plans, got {len(plans)}")
@@ -286,11 +287,11 @@ def sort_rowids(words: torch.Tensor, bits: int,
     if not active:
         # every code bit shared: arrival order is the stable sorted order
         return words, torch.arange(n, dtype=torch.int32, device=words.device)
-    plans = _resolve_plans(n, active, plans)
+    backend = backend_name(backend, words.device)
+    plans = _resolve_plans(n, active, plans, backend)
     widths = word_widths(bits)
     pairs_path = len(widths) == 1 and active[0][1] == widths[0]
-    return _rowid_chain(active, plans, pairs_path,
-                        backend_name(backend, words.device))(words)
+    return _rowid_chain(active, plans, pairs_path, backend)(words)
 
 
 @functools.lru_cache(maxsize=64)
@@ -334,11 +335,11 @@ def sort_rowids_fused(codec: CompositeCodec, prepped,
         used = [32 if s < 0 else s.bit_length()
                 for s in _mask_probe(codec)(prepped).tolist()]  # host sync
         active = tuple((j, min(eff, used[j])) for j, eff in active if used[j])
-    plans = _resolve_plans(n, active, plans)
+    backend = backend_name(backend, device)
+    plans = _resolve_plans(n, active, plans, backend)
     pairs_path = (len(widths) == 1 and len(active) == 1
                   and active[0][1] == widths[0])
-    return _fused_chain(codec, active, plans, pairs_path,
-                        backend_name(backend, device))(prepped)
+    return _fused_chain(codec, active, plans, pairs_path, backend)(prepped)
 
 
 @functools.lru_cache(maxsize=256)
@@ -378,9 +379,9 @@ def sort_rowids_batched(words: torch.Tensor, bits: int, seg_len_log2: int,
     active = active_words(bits, low_bits)
     if not active:
         return words, torch.arange(n, dtype=torch.int32, device=words.device)
-    plans = _resolve_plans(L, active, plans)
-    return _segmented_chain(active, plans, int(seg_len_log2),
-                            backend_name(backend, words.device))(words)
+    backend = backend_name(backend, words.device)
+    plans = _resolve_plans(L, active, plans, backend)
+    return _segmented_chain(active, plans, int(seg_len_log2), backend)(words)
 
 
 @contextlib.contextmanager

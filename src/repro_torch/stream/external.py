@@ -54,13 +54,13 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.autotune import tuned_plan
 from repro_torch.core.executor import CudaBackend, PlanExecutor
 from repro_torch.core.faults import StoreError, StorePermanentError
 from repro_torch.core.fractal_sort import (backend_name, make_backend,
                                           resolve_device)
 from repro_torch.core.fractal_tree import ceil_log2
-from repro_torch.core.sort_plan import (DigitPass, make_sort_plan,
-                                        quantize_sort_bits)
+from repro_torch.core.sort_plan import DigitPass, quantize_sort_bits
 from repro_torch.obs import metrics, trace
 from repro_torch.query.codec import _mask, word_widths
 from repro_torch.stream.chunks import (
@@ -386,9 +386,9 @@ def stream_sorted_words(
                 [int(r) for r in ids] for ids in frag_ids]
             store.write_log(journal, manifest)
 
-    # per-call plan hoisting: plans resolve ONCE per (padded length,
-    # sort-bits) bucket, not once per partition.  The port has no
-    # autotuner: every bucket gets the static plan of each active word.
+    # per-call plan hoisting: tuned plans resolve ONCE per (padded
+    # length, sort-bits) bucket, not once per partition: the autotune
+    # cache is consulted O(buckets) times per external-sort call.
     plan_cache: dict = {}
 
     def plans_for(padded_len, sort_bits):
@@ -397,7 +397,7 @@ def stream_sorted_words(
             from repro_torch.query.operators import active_words
 
             plan_cache[key] = tuple(
-                make_sort_plan(padded_len, eff)
+                tuned_plan(padded_len, eff, backend=backend)
                 for _, eff in active_words(bits, sort_bits))
         return plan_cache[key]
 

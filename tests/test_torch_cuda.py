@@ -36,6 +36,15 @@ from repro_torch.models import layers as L
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _empty_autotune_cache(tmp_path, monkeypatch):
+    """All-defaults sorts resolve their plan through the autotune cache:
+    an empty one gives the static plans, whatever cache the machine
+    holds."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -938,3 +947,69 @@ def test_external_sort_through_the_device_store_on_card(rng, cuda_device,
     counts = ops.launch_counts()
     assert counts["fractal_histogram"] > 0 and counts["fractal_rank_kernel"] > 0
     assert store.device_log and budget.peak_bytes <= budget.limit_bytes
+
+
+# --- the baselines and the autotuner on the card ----------------------------------
+
+
+@pytest.mark.parametrize("p,radix_bits", [(16, 8), (32, 8), (32, 16)])
+def test_lsd_radix_sort_on_card_matches_torch_sort(rng, cuda_device, p,
+                                                   radix_bits):
+    """Each pass ranks through CudaBackend.rank: K1's counts and K2 (its
+    two-level path at 2**16 bins)."""
+    from repro_torch.core import lsd_radix_sort
+
+    raw = rng.integers(0, 1 << p, 100_003, dtype=np.uint64).astype(np.uint32)
+    keys = torch.from_numpy(raw if p == 32 else raw.astype(np.int32))
+    ops.reset_launch_counts()
+    got = lsd_radix_sort(keys.to(cuda_device), p, radix_bits)
+    counts = ops.launch_counts()
+    assert got.dtype == keys.dtype and got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), np.sort(keys.numpy()))
+    passes = -(-p // radix_bits)
+    assert counts["fractal_histogram"] == passes
+    assert counts["fractal_rank_kernel"] == passes
+    assert counts["fractal_rank_scatter_kernel"] == 0
+
+
+@pytest.mark.parametrize("p", [16, 32])
+def test_bitonic_and_torch_sort_on_card_match_cpu(rng, cuda_device, p):
+    from repro_torch.core import bitonic_sort, torch_sort
+
+    raw = rng.integers(0, 1 << p, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    keys = torch.from_numpy(raw if p == 32 else raw.astype(np.int32))
+    on_card = keys.to(cuda_device)
+    for ascending in (True, False):
+        got = bitonic_sort(on_card, ascending=ascending)
+        assert got.dtype == keys.dtype and got.is_cuda
+        on_cpu = bitonic_sort(keys, ascending=ascending, device="cpu")
+        assert torch.equal(got.cpu(), on_cpu)
+    want = np.sort(raw if p == 32 else raw.astype(np.int32))
+    np.testing.assert_array_equal(torch_sort(on_card).cpu().numpy(), want)
+
+
+def test_cuda_sweep_measures_on_card_then_hits(cuda_device, tmp_path):
+    """A "cuda" sweep at 2**12 keys: every grid point measured on the
+    card (K2 or K3 launched), the key names the card, a second call
+    measures nothing and tuned_plan resolves the winner."""
+    from repro_torch.core import autotune as at
+
+    path = str(tmp_path / "tune.json")
+    ops.reset_launch_counts()
+    won = at.autotune_plan(1 << 12, 16, backend="cuda", cache_path=path,
+                           widths=(4, 8))
+    counts = ops.launch_counts()
+    assert counts["fractal_rank_kernel"] > 0
+    assert counts["fractal_rank_scatter_kernel"] > 0
+    key = at.cache_key("cuda", 16, None, 12)
+    assert torch.cuda.get_device_name() in key
+    entry = at._load(path)[key]
+    assert len(entry["sweep"]) == 4 and entry["n_measured"] == 1 << 12
+    assert all(s["wall_s"] > 0 for s in entry["sweep"])
+    ops.reset_launch_counts()
+    assert at.autotune_plan(1 << 12, 16, backend="cuda", cache_path=path,
+                            widths=(4, 8)) == won
+    assert not any(ops.launch_counts().values()), "a hit measures nothing"
+    assert at.tuned_plan(4000, 16, backend="cuda", cache_path=path) == \
+        make_sort_plan(4000, 16, max_bins_log2=entry["max_bins_log2"],
+                       engine=entry["engine"])

@@ -24,6 +24,15 @@ from repro_torch.core import (CudaBackend, PlanExecutor, TorchBackend,
 BACKENDS = {"torch": TorchBackend, "cuda": CudaBackend}
 
 
+@pytest.fixture(autouse=True)
+def _empty_autotune_cache(tmp_path, monkeypatch):
+    """All-defaults sorts resolve their plan through the autotune cache:
+    an empty one gives the static plans, whatever cache the machine
+    holds."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
+
+
 def _u32(x) -> np.ndarray:
     a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return a.astype(np.int64).astype(np.uint32) if a.dtype != np.uint32 else a

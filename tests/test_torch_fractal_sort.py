@@ -39,6 +39,15 @@ from repro_torch.kernels import ops
 BACKENDS = ["torch", "cuda"]
 
 
+@pytest.fixture(autouse=True)
+def _empty_autotune_cache(tmp_path, monkeypatch):
+    """All-defaults sorts resolve their plan through the autotune cache:
+    an empty one gives the static plans, whatever cache the machine
+    holds."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
+
+
 def _keys(rng, n, p):
     return rng.integers(0, 1 << p, n, dtype=np.uint64).astype(np.uint32)
 

@@ -217,8 +217,14 @@ def runs(tmp_path_factory):
             cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)
     try:
-        for D in WORLD_SIZES:
-            mp.spawn(_port_worker, args=(D, dirs[D]), nprocs=D, join=True)
+        # the port's ranks inherit this process's environment: an empty
+        # autotune cache gives them the static plans
+        with pytest.MonkeyPatch.context() as mpatch:
+            mpatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                          str(base / "tune_torch.json"))
+            for D in WORLD_SIZES:
+                mp.spawn(_port_worker, args=(D, dirs[D]), nprocs=D,
+                         join=True)
     finally:
         logs = {D: p.communicate(timeout=900) for D, p in procs.items()}
     for D, p in procs.items():

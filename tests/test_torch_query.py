@@ -29,9 +29,11 @@ F32_RTOL, F64_RTOL = 1e-5, 1e-12
 
 @pytest.fixture(autouse=True)
 def _empty_autotune_cache(tmp_path, monkeypatch):
-    """The reference resolves plans through its autotune cache; an empty
-    one gives the static plans this package resolves."""
+    """The reference resolves plans through its autotune cache, and so
+    does this package; empty ones give both sides the static plans."""
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
 
 
 def _np(x) -> np.ndarray:
@@ -161,7 +163,7 @@ def test_word_widths_infer_codec_and_word_plans():
         tq.infer_codec(np.zeros(3, np.complex64))
     codec = tq.CompositeCodec([tq.ColumnSpec(tq.IntCodec(32)),
                                tq.ColumnSpec(tq.IntCodec(9))])
-    plans = codec.word_plans(4096)
+    plans = codec.word_plans(4096, backend="torch")
     want = rq.CompositeCodec([rq.ColumnSpec(rq.IntCodec(32)),
                               rq.ColumnSpec(rq.IntCodec(9))]).word_plans(4096)
     assert plans == tuple(convert_plan(p) for p in want)

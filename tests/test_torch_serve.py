@@ -24,6 +24,15 @@ from repro_torch.launch import serve as S
 from repro_torch.models.convert import params_from_jax
 
 
+@pytest.fixture(autouse=True)
+def _empty_autotune_cache(tmp_path, monkeypatch):
+    """All-defaults sorts resolve their plan through the autotune cache:
+    an empty one gives the static plans, whatever cache the machine
+    holds."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
+
+
 def _reference_serve(params, cfg, requests, batch_slots, max_len):
     """The decode loop of ``repro.launch.serve.main``, as written there."""
     decode = jax.jit(JTL.make_decode_step(cfg))

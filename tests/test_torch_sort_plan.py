@@ -20,6 +20,15 @@ WIDTHS = [None, 1, 4, 8, 11, 16]
 ENGINES = [None, "onehot", "scatter"]
 
 
+@pytest.fixture(autouse=True)
+def _empty_autotune_cache(tmp_path, monkeypatch):
+    """All-defaults sorts resolve their plan through the autotune cache:
+    an empty one gives the static plans, whatever cache the machine
+    holds."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
+
+
 def _passes(plan):
     return tuple((d.shift, d.bits, d.kind, d.engine) for d in plan.passes)
 

@@ -37,9 +37,11 @@ F64_RTOL = 1e-12
 
 @pytest.fixture(autouse=True)
 def _empty_autotune_cache(tmp_path, monkeypatch):
-    """The reference resolves partition plans through its autotune cache;
-    an empty one gives the static plans the port resolves."""
+    """The reference resolves partition plans through its autotune cache,
+    and so do the port's; empty ones give both sides the static plans."""
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
 
 
 @contextlib.contextmanager

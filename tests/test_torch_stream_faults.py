@@ -38,6 +38,8 @@ from repro_torch.core.faults import (
 @pytest.fixture(autouse=True)
 def _empty_autotune_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune_torch.json"))
 
 
 @contextlib.contextmanager
