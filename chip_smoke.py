@@ -5,11 +5,13 @@ path (prefill through the flash-attention kernel, then the decode loop
 with the fractal-sort scheduler), the query layer on TPC-H-shaped
 tables, the out-of-core stream (external sort and streaming queries
 of host data under a device byte budget), the distributed sort and the
-device store on a one-rank NCCL group, and the plan autotuner and the
-paper's baseline sorts.
+device store on a one-rank NCCL group, the plan autotuner and the
+paper's baseline sorts, and the MoE path (qwen3-moe-30b-a3b serving, its
+token dispatch on the fractal kernels).
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
-                          [--query-log2n 26] [--stream-log2n 24] [--profile]
+                          [--query-log2n 26] [--stream-log2n 24]
+                          [--moe-layers 48] [--profile]
 
 Phases, each fatal on failure:
 
@@ -71,9 +73,11 @@ then, with the sort data freed and TF32 off for float32 matmuls:
 7. K5 (flash attention) against its plain version (the naive fp32
    oracle) on the card at the reference's test shapes, at hd 8, 80, 96
    and 128, at Sq = 1 and Skv != Sq, with a q that is a strided slice of
-   a wider tensor, causal and not, and at the prefill shape q, k, v
-   (2, 2048, 32, 64); tolerance fp32 2e-5 (1e-4 at S = 2048: 2048-term
-   sums in another order), bf16 2e-2;
+   a wider tensor, causal and not, and at the prefill shapes q, k, v
+   (2, 2048, 32, 64) of llama3.2-1b and (2, 2048, 32, 128) of
+   qwen3-moe-30b-a3b (phase 18's prefill, its kv heads repeated from
+   GQA 32/4); tolerance fp32 2e-5 (1e-4 at S = 2048: 2048-term sums in
+   another order), bf16 2e-2;
 8. prefill: llama3.2-1b at full width and depth (``--lm-layers`` cuts
    depth for a rehearsal), fp32 weights from ``--seed``, B = 2 prompts of
    S = 2048 tokens through ``make_prefill_step`` with the kernel switch on
@@ -209,14 +213,41 @@ then, with the sort data freed:
    one's effective bandwidth (useful bytes over time) to
    fractal_sort's.  Its launches form the kernel table's
    "autotune_baselines" column.  Phases 1-16 resolve their plans from
-   an empty cache in a temporary directory, whatever the machine holds.
+   an empty cache in a temporary directory, whatever the machine holds;
+
+then, with the autotune data freed:
+
+18. MoE on the card, data from ``(--seed, 18)``.  a. ``moe_dispatch``
+   (K1's counts, K2's ranks, the inverse permutation) bit-exact against
+   the argsort dispatch (``ref.moe_dispatch_ref``) at (T, E) in {(1,
+   128), (32, 128), (64, 128), (4096, 128), (32768, 128), (2**14, 128),
+   (2**16, 128), (2**16, 8)} on uniform, zipf(1.2) and one-expert ids,
+   one K1 and one K2 launch each; b. one full-width qwen3-moe layer (D
+   2048, E 128, top-8, F 768, bf16) with a zero router sends every token
+   to experts 0..7 at weight 1/8, aux 1; c. the same layer at T = 4096
+   (C = 320) on K1/K2 bit-equal (out and aux) to itself on the argsort
+   dispatch, one K1 and one K2 launch; e. decode against prefill (K5 on)
+   at full width, 2 layers, fp32, capacity_factor = E (no drops), B = 2,
+   S = 32, within 1e-3, two K1 and two K2 launches a step; d.
+   qwen3-moe-30b-a3b at full width and depth (``--moe-layers`` cuts it
+   for a rehearsal), random bf16 weights (the router fp32): one decode
+   step of 4 slots launches K1 and K2 once a layer, a prefill of 2 x 2048
+   tokens (K5 on) exactly once a layer each and gives finite logits, then
+   ``serve()`` of 8 requests with 4 slots at max_len 96 answers every one
+   with at least one K1 and one K2 launch a layer a decode step; f. the
+   dispatch µs at the reference bench's shapes beside the argsort
+   dispatch (a yardstick the port never calls), K1 and K2 at prefill's
+   dispatch shape, the layer's ms beside its bound (its expert bytes or
+   its bf16 flops), prefill ms, and serve ms a step beside the time to
+   read every weight once.  The prefill and serve launches form the
+   kernel table's "moe" column.
 
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
-11, 13-17).
+11, 13-18).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -229,8 +260,10 @@ import contextlib
 import dataclasses
 import datetime
 import gc
+import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -517,22 +550,25 @@ def lm_phases(args, dev, card: str, path_counts: dict) -> tuple:
     rng = phase_rng(args.seed, 7)
     k5_err = {"float32": 0.0, "bfloat16": 0.0}
     full = (B, S, H, hd, S)
+    moe_cfg = get_config(MOE_ARCH)
+    moe_full = (B, S, moe_cfg.n_heads, moe_cfg.resolved_head_dim, S)
     # (B, Sq, H, hd, Skv, q a strided slice): the reference's test shapes,
     # one query row, fewer keys than queries, hd 8 and 80 (zero-padded to
     # the fragment depth), hd 96 and 128, an hd that takes the
-    # element-wise loads, a strided q, and the prefill shape
+    # element-wise loads, a strided q, and the two models' prefill shapes
     shapes = ((2, 64, 4, 16, 64, False), (1, 48, 2, 8, 80, False),
               (2, 100, 2, 32, 100, False), (2, 1, 3, 64, 70, False),
               (1, 150, 2, 64, 40, False), (2, 77, 2, 8, 77, False),
               (1, 90, 2, 80, 130, False), (2, 33, 2, 96, 65, False),
               (1, 130, 2, 128, 70, False), (1, 33, 2, 20, 47, False),
-              (2, 65, 2, 64, 65, True), (*full, False))
+              (2, 65, 2, 64, 65, True), (*full, False),
+              (*moe_full, False))
     for *shape, strided in shapes:
         shape = tuple(shape)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             tol = (2e-2 if dtype == torch.bfloat16
-                   else 1e-4 if shape == full else 2e-5)
+                   else 1e-4 if shape in (full, moe_full) else 2e-5)
             q, k, v = qkv(rng, shape, dtype)
             if strided:  # heads [1:1+H] and hd [0:hd) of a wider tensor
                 b, sq, h, d, _ = shape
@@ -2069,6 +2105,333 @@ def tune_phases(args, dev, card: str, path_counts: dict,
     return e2e
 
 
+# phase 18's configuration and shapes
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# one full-width layer's tokens: C = 320 at capacity 1.25
+MOE_LAYER_TOKENS = 4096
+# (T, E) of the dispatch checks: one token, a decode step's 4 slots x
+# top-8, prefill's 2 x 2048 x 8 assignments, and the reference bench's
+# shapes (benchmarks/bench_moe_dispatch.py:18), which are also timed
+MOE_DISPATCH_SHAPES = ((1, 128), (32, 128), (64, 128), (4096, 128),
+                       (32768, 128), (1 << 14, 128), (1 << 16, 128),
+                       (1 << 16, 8))
+MOE_BENCH_SHAPES = ((1 << 14, 128), (1 << 16, 128), (1 << 16, 8))
+MOE_CHECK_SEQ = 32  # decode against prefill: B = 2 prompts of 32 tokens
+
+
+def expert_ids(rng: np.random.Generator, n: int, n_experts: int,
+               dist: str) -> np.ndarray:
+    """(n,) int32 expert ids: uniform, zipf(1.2)-skewed or one expert."""
+    if dist == "uniform":
+        ids = rng.integers(0, n_experts, n)
+    elif dist == "zipf":
+        ids = np.minimum(rng.zipf(1.2, n) - 1, n_experts - 1)
+    else:
+        ids = np.full(n, rng.integers(0, n_experts))
+    return ids.astype(np.int32)
+
+
+def moe_phases(args, dev, card: str, path_counts: dict) -> tuple:
+    """Phase 18: the MoE path on the card.  Adds ``path_counts["moe"]``
+    (one prefill and one serve of qwen3-moe-30b-a3b); returns (e2e rows,
+    K1's and K2's max |err| in this phase, their rows at prefill's
+    dispatch shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fractal_tree import exclusive_cumsum
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fractal_histogram import fractal_histogram
+    from repro_torch.kernels.fractal_rank import fractal_rank_kernel
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train_lib import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = phase_rng(args.seed, 18)
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    E, k, D, F_ = m.num_experts, m.top_k, cfg.d_model, m.d_ff
+    k12 = ("fractal_histogram", "fractal_rank_kernel")
+    errs = {name: 0 for name in k12}
+    e2e = []
+
+    def k1_k2() -> tuple:
+        got = ops.launch_counts()
+        return tuple(got[name] for name in k12)
+
+    # -- a. the dispatch against its plain version, bit for bit ---------------
+    t0 = time.perf_counter()
+    cases = 0
+    for (n, n_e), dist in itertools.product(
+            MOE_DISPATCH_SHAPES, ("uniform", "zipf", "one_expert")):
+        ids = torch.from_numpy(expert_ids(rng, n, n_e, dist)).to(dev)
+        ops.reset_launch_counts()
+        got = ops.moe_dispatch(ids, n_e)
+        if k1_k2() != (1, 1):
+            raise AssertionError(f"moe_dispatch T={n} E={n_e} launched K1, "
+                                 f"K2 {k1_k2()} times, expected once each")
+        want = ref.moe_dispatch_ref(ids, n_e)
+        torch.cuda.synchronize()
+        for part, g, w, kernel in zip(
+                ("perm", "rank", "counts"), got, want,
+                ("fractal_rank_kernel", "fractal_rank_kernel",
+                 "fractal_histogram")):
+            err = max_abs_err(g, w)
+            errs[kernel] = max(errs[kernel], err)
+            if err or g.dtype != torch.int32:
+                raise AssertionError(f"moe_dispatch {part} at T={n} E={n_e} "
+                                     f"{dist}: max |err| {err}, {g.dtype}")
+        cases += 1
+    log(f"[moe] dispatch (K1 + K2) bit-exact against the argsort dispatch "
+        f"over {cases} cases ((T, E) in {list(MOE_DISPATCH_SHAPES)} x "
+        f"uniform / zipf(1.2) / one expert) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- b. the zero-router tie case on one full-width layer ------------------
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    layer = M.MoE(cfg, torch.bfloat16, dev)
+    layer.init_params(gen)
+    n_tok = MOE_LAYER_TOKENS
+    x = torch.from_numpy(rng.standard_normal((1, n_tok, D), np.float32)).to(
+        dev, torch.bfloat16)
+    router = layer.router.clone()
+    layer.router.zero_()
+    _, ids, w = M.route(layer.router, x.reshape(n_tok, D), k)
+    tied_out, tied_aux = M.moe_apply(layer, cfg, x)
+    layer.router.copy_(router)
+    if not (torch.equal(ids, torch.arange(k, dtype=torch.int32,
+                                          device=dev).repeat(n_tok))
+            and bool((w == 1.0 / k).all())):
+        raise AssertionError("a zero router does not send every token to "
+                             "experts 0..k-1 with equal weights")
+    # every assignment in experts 0..k-1 at probability 1/E: aux is 1
+    if not (bool(torch.isfinite(tied_out).all())
+            and abs(tied_aux.item() - 1.0) < 1e-6):
+        raise AssertionError(f"zero router: aux {tied_aux.item()}, out "
+                             f"finite {bool(torch.isfinite(tied_out).all())}")
+    log(f"[moe] zero router: all {n_tok} tokens to experts 0..{k - 1} with "
+        f"weight 1/{k}, aux {tied_aux.item()}")
+    del tied_out, router
+
+    # -- c. one full-width layer: on K1/K2 against the argsort dispatch -------
+    C = max(k, math.ceil(m.capacity_factor * n_tok * k / E))
+    ops.reset_launch_counts()
+    out, aux = M.moe_apply(layer, cfg, x)
+    layer_launches = k1_k2()
+    out_ref, aux_ref = M.moe_apply(layer, cfg, x,
+                                   dispatch=ref.moe_ranks_ref)
+    torch.cuda.synchronize()
+    if layer_launches != (1, 1):
+        raise AssertionError(f"one MoE layer launched K1, K2 "
+                             f"{layer_launches} times, expected once each")
+    if not (torch.equal(out, out_ref) and torch.equal(aux, aux_ref)):
+        raise AssertionError("the MoE layer on K1/K2 differs from the same "
+                             "layer on the argsort dispatch")
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"MoE layer out {tuple(out.shape)} not finite "
+                             f"or not of {tuple(x.shape)}")
+    expert_bytes = 3 * E * D * F_ * torch.finfo(torch.bfloat16).bits // 8
+    flops = 3 * 2 * E * C * D * F_
+    byte_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / BF16_FLOPS * 1e3
+    e2e.append({
+        "name": f"moe layer {MOE_ARCH} bf16: T={n_tok}, C={C}",
+        "ms": cuda_ms(lambda: M.moe_apply(layer, cfg, x)),
+        "argsort_dispatch_ms": cuda_ms(lambda: M.moe_apply(
+            layer, cfg, x, dispatch=ref.moe_ranks_ref)),
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "expert_bytes": expert_bytes, "flops": flops, "aux": aux.item(),
+    })
+    log(f"[moe] one layer (D {D}, E {E}, k {k}, F {F_}, bf16, T {n_tok}, "
+        f"C {C}): out and aux bit-equal on K1/K2 and on the argsort "
+        f"dispatch; {json.dumps(e2e[-1])}")
+    if args.profile:
+        log(json.dumps({"profile_moe_layer": profile_call(
+            lambda: M.moe_apply(layer, cfg, x)), "card": card}))
+    del layer, x, out, out_ref, ids, w
+
+    # -- e. decode against prefill: 2 full-width layers, fp32, no drops -------
+    t0 = time.perf_counter()
+    small = dataclasses.replace(
+        cfg, n_layers=2, use_pallas_attention=True,
+        moe=dataclasses.replace(m, capacity_factor=float(E)))
+    model = T.Transformer(small, device=dev).init_params(gen)
+    B, S = 2, MOE_CHECK_SEQ
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+    ops.reset_launch_counts()
+    full = make_prefill_step(small)(model, {"tokens": tokens})
+    prefill_launches = k1_k2()
+    cache = T.init_cache(small, B, S, model.dtype, dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        dec = [T.decode_step(model, small, cache, tokens[:, t:t + 1], t)[0][:, 0]
+               for t in range(S)]
+    decode_launches = k1_k2()
+    if prefill_launches != (2, 2) or decode_launches != (2 * S, 2 * S):
+        raise AssertionError(f"2 MoE layers launched K1, K2 "
+                             f"{prefill_launches} times on a prefill and "
+                             f"{decode_launches} on {S} decode steps")
+    # fp32 through 2 layers, attention and expert sums in another order
+    decode_err = check_close("moe decode vs prefill logits",
+                             torch.stack(dec, 1), full, 1e-3)
+    log(f"[moe] decode vs prefill, 2 layers fp32, capacity {float(E)}: {S} "
+        f"steps within 1e-3 (max |err| {decode_err:.3e}); K1, K2 "
+        f"{prefill_launches} on the prefill, {decode_launches} on the decode "
+        f"({time.perf_counter() - t0:.1f} s)")
+    e2e.append({"name": f"moe decode vs prefill {MOE_ARCH} 2 layers fp32",
+                "max_abs_err": decode_err})
+    del model, cache, full, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- d. qwen3-moe-30b-a3b at full width and depth, bf16 -------------------
+    if args.moe_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.moe_layers)
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, device=dev, dtype=torch.bfloat16).init_params(
+        gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {D}, {E} experts "
+        f"top-{k} of width {F_}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads "
+        f"x {cfg.resolved_head_dim}, vocab {cfg.vocab}: "
+        f"{n_params / 1e9:.3f} B bf16 parameters (fp32 router) from seed "
+        f"{args.seed} in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    n_moe = cfg.n_layers
+    # one decode step of 4 slots: one K1 and one K2 launch a layer
+    cache = T.init_cache(cfg, 4, 8, model.dtype, dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        step_logits, _ = T.decode_step(model, cfg, cache,
+                                       tokens.reshape(4, -1)[:, :1], 0)
+    torch.cuda.synchronize()
+    if k1_k2() != (n_moe, n_moe):
+        raise AssertionError(f"one decode step launched K1, K2 {k1_k2()} "
+                             f"times, expected one a layer ({n_moe})")
+    if args.profile:
+        log(json.dumps({"profile_moe_decode_step": profile_call(
+            lambda: T.decode_step(model, cfg, cache,
+                                  tokens.reshape(4, -1)[:, :1], 0)),
+            "card": card}))
+    del cache, step_logits
+    B, S = PREFILL_BATCH, PREFILL_SEQ
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S))).to(dev)}
+    prefill = make_prefill_step(dataclasses.replace(
+        cfg, use_pallas_attention=True))
+    ops.reset_launch_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    on_prefill = ops.launch_counts()
+    if (k1_k2() != (n_moe, n_moe)
+            or on_prefill["flash_attention_kernel"] != cfg.n_layers):
+        raise AssertionError(f"prefill launched K1, K2 {k1_k2()} and K5 "
+                             f"{on_prefill['flash_attention_kernel']} times, "
+                             f"expected {n_moe} each")
+    if (logits.shape != (B, S, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite or not of ({B}, {S}, {cfg.vocab})")
+    log(f"[moe] prefill B={B} S={S}: logits {tuple(logits.shape)} finite; "
+        f"launches {json.dumps({n: c for n, c in on_prefill.items() if c})}")
+    del logits
+    requests = make_requests(8, cfg.vocab, rng)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        served = serve(model, requests, batch_slots=4, max_len=96)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    path_counts["moe"] = ops.launch_counts()
+    for line in printed.getvalue().splitlines():
+        log(line)
+    steps = int(re.search(r"(\d+) decode steps", printed.getvalue()).group(1))
+    unanswered = [r.rid for r in served if len(r.out) != r.max_new
+                  or not all(0 <= t < cfg.vocab for t in r.out)]
+    if unanswered:
+        raise AssertionError(f"requests not answered in full: {unanswered}")
+    on_serve = tuple(path_counts["moe"][n] - on_prefill[n] for n in k12)
+    if min(on_serve) < n_moe * steps:
+        raise AssertionError(f"serve launched K1, K2 {on_serve} times in "
+                             f"{steps} decode steps, fewer than one a step "
+                             f"in each of {n_moe} MoE layers")
+    generated = sum(len(r.out) for r in served)
+    fed = sum(len(r.prompt) + len(r.out) - 1 for r in served)
+    # a decode step reads every weight but the embedding table (the
+    # einsums run every expert, whatever the routing)
+    read = sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters() if name != "embed")
+    experts = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters()
+                  if re.search(r"ffn\.w[igd]$", name))
+    log(f"[moe] serve: {len(served)}/{len(requests)} requests answered in "
+        f"{serve_s:.3f} s, {steps} decode steps; K1, K2 {on_serve} launches "
+        f"(the scheduler's sorts and {n_moe} a step)")
+
+    # -- f. times ----------------------------------------------------------------
+    for n, n_e in MOE_BENCH_SHAPES:
+        ids = torch.from_numpy(expert_ids(rng, n, n_e, "uniform")).to(dev)
+        e2e.append({
+            "name": f"moe_dispatch T={n} E={n_e} uniform",
+            "us": cuda_ms(lambda: ops.moe_dispatch(ids, n_e)) * 1e3,
+            "argsort_dispatch_us": cuda_ms(
+                lambda: ref.moe_dispatch_ref(ids, n_e)) * 1e3,
+            # ids read, perm and rank written, counts written
+            "bound_us": (12 * n + 4 * n_e) / HBM_BYTES_PER_S * 1e6,
+        })
+        log(f"[time] {json.dumps(e2e[-1])}")
+    # K1 and K2 at prefill's dispatch: 2 x 2048 tokens x top-8 over E
+    n = B * S * k
+    ids = torch.from_numpy(expert_ids(rng, n, E, "uniform")).to(dev)
+    starts = exclusive_cumsum(fractal_histogram(ids, E))
+    shape = f"n={n} (prefill's T*k), {E} bins"
+    kernel_rows = {
+        "fractal_histogram": {
+            "moe_shape": shape,
+            "moe_ms": cuda_ms(lambda: fractal_histogram(ids, E)),
+            "moe_plain_ms": cuda_ms(lambda: ref.histogram_ref(ids, E)),
+            "moe_library_ms": cuda_ms(lambda: torch.bincount(ids,
+                                                             minlength=E)),
+            "moe_bound_ms": (4 * n + 4 * E) / HBM_BYTES_PER_S * 1e3},
+        "fractal_rank_kernel": {
+            "moe_shape": shape,
+            "moe_ms": cuda_ms(lambda: fractal_rank_kernel(ids, starts, E)),
+            "moe_plain_ms": cuda_ms(lambda: ref.rank_ref(ids, starts, E)),
+            "moe_library_ms": cuda_ms(lambda: torch.sort(ids, stable=True)),
+            "moe_bound_ms": (8 * n + 4 * E) / HBM_BYTES_PER_S * 1e3},
+    }
+    for name, row in kernel_rows.items():
+        log(f"[time] {name} at {shape}: {json.dumps(row)}")
+    if args.profile:
+        log(json.dumps({"profile_moe_prefill": profile_call(
+            lambda: prefill(model, batch)), "card": card}))
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
+    e2e += [{
+        "name": f"prefill {MOE_ARCH} B={B} S={S} bf16, K5 attention",
+        "layers": cfg.n_layers, "ms": prefill_ms,
+        "tokens_per_s": B * S / prefill_ms * 1e3,
+    }, {
+        "name": f"serve {MOE_ARCH} bf16: 8 requests, 4 slots, max_len 96",
+        "layers": cfg.n_layers, "wall_s": serve_s, "decode_steps": steps,
+        "ms_a_step": serve_s / steps * 1e3,
+        "weight_read_bound_ms_a_step": read / HBM_BYTES_PER_S * 1e3,
+        "expert_read_bound_ms_a_step": experts / HBM_BYTES_PER_S * 1e3,
+        "generated_tokens": generated, "fed_tokens": fed,
+        "generated_tokens_per_s": generated / serve_s,
+        "fed_tokens_per_s": fed / serve_s,
+    }]
+    for row in e2e[-2:]:
+        log(f"[e2e] {row}")
+    log(f"[launches] moe path (phase 18 in "
+        f"{time.perf_counter() - t_phase:.1f} s): "
+        f"{json.dumps(path_counts['moe'])}")
+    return e2e, errs, kernel_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2082,6 +2445,9 @@ def main() -> int:
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut llama3.2-1b to this many layers (default: "
                          "all 16)")
+    ap.add_argument("--moe-layers", type=int, default=None,
+                    help="cut qwen3-moe-30b-a3b to this many layers in phase "
+                         "18 (default: all 48)")
     ap.add_argument("--query-log2n", type=int, default=26,
                     help="about 2**N lineitem rows (2**(N-2) orders) in the "
                          "query phases (default 26; 20 for a rehearsal)")
@@ -2613,9 +2979,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     e2e += tune_phases(args, dev, card, path_counts, tune_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"before the MoE phase")
+    moe_e2e, moe_errs, moe_kernel_rows = moe_phases(args, dev, card,
+                                                    path_counts)
+    e2e += moe_e2e
 
     # every kernel launched on a main path (sort, prefill, serve, query,
-    # stream, distributed, device store, autotune / baselines)
+    # stream, distributed, device store, autotune / baselines, moe)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "
@@ -2626,7 +2999,9 @@ def main() -> int:
     for entry in table:
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    stream_errs.get(entry["name"], 0),
-                                   dist_errs.get(entry["name"], 0))
+                                   dist_errs.get(entry["name"], 0),
+                                   moe_errs.get(entry["name"], 0))
+        entry.update(moe_kernel_rows.get(entry["name"], {}))
         entry["launches"] = totals[entry["name"]]
         entry["launches_by_path"] = {p: c.get(entry["name"], 0)
                                      for p, c in path_counts.items()}

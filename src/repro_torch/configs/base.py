@@ -5,7 +5,8 @@ A copy of the reference package's ``configs/base.py`` (pure Python), kept
 here so that the port imports nothing of the reference.  Config modules
 register themselves on import; ``get_config`` imports
 ``repro_torch.configs.<name>``.  Only the families the port runs have a
-module here (``llama3_2_1b``); the others come with their families.
+module here (``llama3_2_1b``, ``qwen3_moe_30b_a3b``); the others come
+with their families.
 
 Every architecture is expressed as a *layer pattern* — a period of
 (mixer, ffn) blocks repeated ``n_layers / len(pattern)`` times.

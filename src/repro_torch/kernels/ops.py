@@ -1,8 +1,8 @@
 """Public entry points over the CUDA kernels.
 
-Port of ``repro.kernels.ops`` for the sort path and flash attention.  On
-CUDA tensors every function launches the hand-written kernels; on CPU
-tensors the wrappers compute their plain versions.  :func:`launch_counts` /
+Port of ``repro.kernels.ops`` for the sort path, MoE dispatch and flash
+attention.  On CUDA tensors every function launches the hand-written
+kernels; on CPU tensors the wrappers compute their plain versions.  :func:`launch_counts` /
 :func:`reset_launch_counts` read and clear the wrappers' launch counters.
 """
 
@@ -26,6 +26,7 @@ from repro_torch.kernels.fractal_rank import (
     fractal_rank_scatter_kernel as _rank_scatter)
 from repro_torch.kernels.fractal_reconstruct import (
     fractal_reconstruct as _recon)
+from repro_torch.kernels.moe_dispatch import moe_dispatch as _dispatch
 
 __all__ = [
     "flash_attention",
@@ -34,6 +35,7 @@ __all__ = [
     "rank",
     "rank_digit",
     "reconstruct",
+    "moe_dispatch",
     "fractal_sort_kernel",
     "fractal_sort_pairs_kernel",
     "launch_counts",
@@ -53,7 +55,7 @@ KERNELS = {
 #: the kernels of the sort path (K1-K4; "fractal_histogram" counts every
 #: K1 launch, "fractal_histogram_digits" its one-sweep launches and
 #: "fractal_histogram_cluster" its launches above 2**14 bins too); K5
-#: runs on the LM's prefill path
+#: runs on the LM's prefill path, and MoE dispatch launches K1 and K2
 SORT_KERNELS = ("fractal_histogram", "fractal_histogram_digits",
                 "fractal_rank_kernel", "fractal_rank_scatter_kernel",
                 "fractal_reconstruct")
@@ -92,6 +94,10 @@ def rank(keys, bin_start, n_bins: int, block: int = 1024):
 
 def reconstruct(counts, trailing, n_bins: int, t_bits: int):
     return _recon(counts, trailing, n_bins, t_bits)
+
+
+def moe_dispatch(expert_ids, num_experts: int, block: int = 1024):
+    return _dispatch(expert_ids, num_experts, block=block)
 
 
 def fractal_sort_kernel(keys, p: int, block: int = 1024,

@@ -12,10 +12,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.fractal_tree import as_u32_bits, wrap_int32
+from repro_torch.core.fractal_tree import (as_u32_bits, exclusive_cumsum,
+                                           wrap_int32)
 
 __all__ = ["histogram_ref", "digit_histograms_ref", "rank_ref",
-           "reconstruct_ref", "flash_attention_ref"]
+           "reconstruct_ref", "moe_dispatch_ref", "moe_ranks_ref",
+           "flash_attention_ref"]
 
 
 def histogram_ref(keys: torch.Tensor, n_bins: int,
@@ -75,6 +77,25 @@ def reconstruct_ref(counts: torch.Tensor, trailing: torch.Tensor,
     slot_bin = torch.searchsorted(ends, slots, right=True)
     return wrap_int32((slot_bin << t_bits)
                       | (trailing.to(torch.int64) & 0xFFFFFFFF))
+
+
+def moe_dispatch_ref(expert_ids: torch.Tensor, num_experts: int) -> tuple:
+    """The argsort dispatch (what frameworks usually do): ``perm`` a
+    stable argsort of the ids, ``rank`` its inverse and ``counts`` the
+    experts' loads, all int32."""
+    T = expert_ids.shape[0]
+    perm = torch.argsort(expert_ids, stable=True)
+    rank = torch.zeros((T,), dtype=torch.int32, device=expert_ids.device)
+    rank[perm] = torch.arange(T, dtype=torch.int32, device=expert_ids.device)
+    return (perm.to(torch.int32), rank,
+            histogram_ref(expert_ids, num_experts))
+
+
+def moe_ranks_ref(expert_ids: torch.Tensor, num_experts: int) -> tuple:
+    """:func:`moe_dispatch_ref`'s ``(rank, counts)`` and the experts'
+    first slots, the shape of ``moe_dispatch.moe_ranks``."""
+    _, rank, counts = moe_dispatch_ref(expert_ids, num_experts)
+    return rank, counts, exclusive_cumsum(counts)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,3 +1,3 @@
-"""The LM scaffold's models: dense decoder-only transformers
-(``layers``, ``transformer``) and weight conversion from the reference
-package (``convert``)."""
+"""The LM scaffold's models: decoder-only transformers, dense and MoE
+(``layers``, ``moe``, ``transformer``), and weight conversion from the
+reference package (``convert``)."""

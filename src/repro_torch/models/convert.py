@@ -4,7 +4,8 @@ The reference keeps its weights as a pytree of arrays with one period of
 blocks stacked over a leading ``repeats`` axis.  :func:`params_from_jax`
 takes that pytree with numpy leaves (``jax.tree.map(np.asarray, params)``,
 done by the caller: nothing here imports JAX), unstacks the repeats into
-one block per layer and copies every weight in its (d_in, d_out) layout.
+one block per layer and copies every weight in its (d_in, d_out) layout
+(an MoE block's (E, D, F) experts and fp32 router likewise).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def params_from_jax(params: dict, cfg: ModelConfig, device=None
                       f"{name}.mixer.{w}")
         if block.ffn_kind != "none":
             _copy(block.norm2.scale, p["norm2"][r], f"{name}.norm2")
-            for w in ("wi", "wd", "wg"):
+            for w in ("wi", "wd", "wg", "router"):
                 if w in p["ffn"]:
                     _copy(getattr(block.ffn, w), p["ffn"][w][r],
                           f"{name}.ffn.{w}")

@@ -1,4 +1,5 @@
-"""Model assembler (port of ``repro.models.transformer``, dense path).
+"""Model assembler (port of ``repro.models.transformer``, dense and MoE
+paths).
 
 A :class:`Transformer` holds the token embedding, one :class:`Block` per
 layer and the final norm; the reference stacks one period of blocks over
@@ -8,10 +9,11 @@ repeat ``r``).  :func:`forward` / :func:`forward_hidden` /
 :func:`unembed` / :func:`init_cache` / :func:`decode_step` keep the
 reference's signatures with the model in place of the parameter pytree.
 
-Supported: mixer ``attn``, ffns ``mlp`` and ``none``.  The other mixers
-(``mamba``, ``mlstm``, ``slstm``), ``moe`` ffns, the encoder-decoder stack
-and the ``patch`` frontend raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them; nothing falls back.
+Supported: mixer ``attn``, ffns ``mlp``, ``moe`` (:mod:`.moe`, one rank)
+and ``none``.  The other mixers (``mamba``, ``mlstm``, ``slstm``), the
+encoder-decoder stack and the ``patch`` frontend raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fractal_sort import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Block", "Transformer", "forward", "forward_hidden", "unembed",
            "init_cache", "decode_step"]
@@ -32,7 +35,6 @@ _NOT_YET = {
     "mamba": "the mamba mixer (models/ssm.py)",
     "mlstm": "the mLSTM mixer (models/xlstm.py)",
     "slstm": "the sLSTM mixer (models/xlstm.py)",
-    "moe": "the MoE ffn (models/moe.py, kernels/moe_dispatch.py)",
 }
 
 
@@ -46,7 +48,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     for mixer, ffn in cfg.pattern:
         if mixer != "attn":
             _refuse(_NOT_YET.get(mixer, f"mixer {mixer!r}"))
-        if ffn not in ("mlp", "none"):
+        if ffn not in ("mlp", "moe", "none"):
             _refuse(_NOT_YET.get(ffn, f"ffn {ffn!r}"))
     if cfg.encoder_layers:
         _refuse("the encoder-decoder stack (whisper)")
@@ -55,7 +57,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1 + attention mixer, then norm2 + ffn (absent when ``none``)."""
+    """norm1 + attention mixer, then norm2 + ffn: an MLP, an
+    :class:`~repro_torch.models.moe.MoE`, or none."""
 
     def __init__(self, cfg: ModelConfig, ffn: str, dtype, device):
         super().__init__()
@@ -64,7 +67,8 @@ class Block(nn.Module):
         self.mixer = L.Attention(cfg, dtype, device)
         if ffn != "none":
             self.norm2 = L.RMSNorm(cfg.d_model, dtype, device)
-            self.ffn = L.MLP(cfg, dtype, device)
+            self.ffn = (MoE(cfg, dtype, device) if ffn == "moe"
+                        else L.MLP(cfg, dtype, device))
 
     def init_params(self, generator: torch.Generator) -> None:
         self.mixer.init_params(generator)
@@ -123,15 +127,26 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _ffn_apply(p: Block, cfg: ModelConfig, x):
+    """The block's ffn half with its residual.  Returns (x, aux): aux is
+    the MoE load-balancing loss (fp32), None for the other ffns."""
+    if p.ffn_kind == "none":
+        return x, None
+    aux = None
+    h = L.rms_norm(x, p.norm2.scale, cfg.rms_eps)
+    if p.ffn_kind == "moe":
+        h, aux = moe_apply(p.ffn, cfg, h)
+    else:
+        h = L.mlp_apply(p.ffn, cfg, h)
+    return x + h.to(x.dtype), aux
+
+
 def _block_apply(p: Block, cfg: ModelConfig, x, *, causal: bool):
+    """Returns (x, aux), as :func:`_ffn_apply`."""
     h = L.rms_norm(x, p.norm1.scale, cfg.rms_eps)
     h, _ = L.attn_apply(p.mixer, cfg, h, causal=causal,
                         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    x = x + h.to(x.dtype)
-    if p.ffn_kind != "none":
-        h = L.rms_norm(x, p.norm2.scale, cfg.rms_eps)
-        x = x + L.mlp_apply(p.ffn, cfg, h).to(x.dtype)
-    return x
+    return _ffn_apply(p, cfg, x + h.to(x.dtype))
 
 
 def unembed(model: Transformer, cfg: ModelConfig):
@@ -141,14 +156,18 @@ def unembed(model: Transformer, cfg: ModelConfig):
 def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
                    frontend_embeds=None):
     """Final hidden states (pre-unembedding).  Returns (h (B,S,D), aux);
-    aux is the MoE load-balancing loss, zero for dense models."""
+    aux is the MoE load-balancing loss summed over the layers in fp32,
+    zero for dense models."""
     if frontend_embeds is not None:
         _refuse("frontend embeddings (enc-dec and vlm)")
     x = model.embed[tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
-        x = _block_apply(block, cfg, x, causal=True)
+        x, a = _block_apply(block, cfg, x, causal=True)
+        if a is not None:
+            aux = aux + a
     x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(model: Transformer, cfg: ModelConfig, tokens,
@@ -185,7 +204,8 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: list, token,
     """One decode step.  token: (B, 1) integer; pos: int (or 0-d tensor).
 
     Returns (logits (B, 1, V), cache); the cache tensors are updated in
-    place (the reference returns new arrays)."""
+    place (the reference returns new arrays).  MoE blocks route this
+    step's B tokens alone, and their aux loss is dropped."""
     if cross_kv is not None:
         _refuse("cross-attention decode (enc-dec)")
     x = model.embed[token]
@@ -194,9 +214,6 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: list, token,
         h, c["k"], c["v"] = L.attn_decode(block.mixer, cfg, h, c["k"],
                                           c["v"], pos,
                                           kv_seq_axis=kv_seq_axis)
-        x = x + h.to(x.dtype)
-        if block.ffn_kind == "mlp":
-            h = L.rms_norm(x, block.norm2.scale, cfg.rms_eps)
-            x = x + L.mlp_apply(block.ffn, cfg, h).to(x.dtype)
+        x, _ = _ffn_apply(block, cfg, x + h.to(x.dtype))
     x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
     return x @ unembed(model, cfg), cache

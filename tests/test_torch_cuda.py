@@ -1013,3 +1013,56 @@ def test_cuda_sweep_measures_on_card_then_hits(cuda_device, tmp_path):
     assert at.tuned_plan(4000, 16, backend="cuda", cache_path=path) == \
         make_sort_plan(4000, 16, max_bins_log2=entry["max_bins_log2"],
                        engine=entry["engine"])
+
+
+# --- MoE: fractal dispatch on K1 and K2 ------------------------------------------
+
+
+@pytest.mark.parametrize("T,E", [(1, 128), (32, 128), (4096, 128),
+                                 (32768, 128), (1 << 16, 128), (1 << 16, 8)])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_expert"])
+def test_moe_dispatch_matches_plain_version(rng, cuda_device, T, E, dist):
+    """perm, rank and counts bit for bit against the argsort dispatch,
+    from one K1 and one K2 launch."""
+    if dist == "uniform":
+        ids = rng.integers(0, E, T)
+    elif dist == "zipf":
+        ids = np.minimum(rng.zipf(1.2, T) - 1, E - 1)
+    else:
+        ids = np.full(T, rng.integers(0, E))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+    ops.reset_launch_counts()
+    got = ops.moe_dispatch(ids, E)
+    counts = ops.launch_counts()
+    assert counts["fractal_histogram"] == 1
+    assert counts["fractal_rank_kernel"] == 1
+    for g, w in zip(got, ref.moe_dispatch_ref(ids, E)):
+        assert g.dtype == torch.int32
+        assert torch.equal(g, w)
+
+
+def test_moe_apply_on_card_sorts_only_on_k1_k2(cuda_device, monkeypatch):
+    """The MoE layer on the card launches K1 and K2 once each, calls no
+    torch sort, and equals the same layer on the argsort dispatch bit for
+    bit (only integer metadata differs between the two)."""
+    from repro_torch.models import moe as M
+
+    cfg = smoke_config(get_config("qwen3-moe-30b-a3b"))
+    layer = M.MoE(cfg, torch.float32, cuda_device)
+    layer.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    x = torch.randn(2, 64, cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(1))
+    want = M.moe_apply(layer, cfg, x, dispatch=ref.moe_ranks_ref)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a torch sort on the MoE path")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "argsort", refuse)
+    ops.reset_launch_counts()
+    out, aux = M.moe_apply(layer, cfg, x)
+    counts = ops.launch_counts()
+    monkeypatch.undo()
+    assert counts["fractal_histogram"] == 1
+    assert counts["fractal_rank_kernel"] == 1
+    assert torch.equal(out, want[0]) and torch.equal(aux, want[1])

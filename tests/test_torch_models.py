@@ -22,11 +22,12 @@ from repro.configs import smoke_config as jsmoke_config
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import train_lib as TL
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import MoEConfig, get_config, smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.moe import MoE
 
 TOL = 2e-4  # fp32 sums in another order through one layer of the stack
 VARIANTS = {"mha": {}, "gqa": {"n_heads": 4, "n_kv_heads": 2}}
@@ -156,12 +157,22 @@ def test_mlp_activations_match_reference(act):
         atol=TOL)
 
 
-@pytest.mark.parametrize("pattern", [(("mamba", "mlp"),), (("attn", "moe"),),
+@pytest.mark.parametrize("pattern", [(("mamba", "mlp"),),
                                      (("mlstm", "none"),)])
 def test_unported_blocks_raise(pattern):
     cfg, _ = _cfgs("mha", pattern=pattern)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.Transformer(cfg, device="cpu")
+
+
+def test_moe_blocks_build():
+    """An (attn, moe) pattern builds, beside dense blocks: the MoE ffn is
+    ported (its parity tests are tests/test_torch_moe.py)."""
+    cfg, _ = _cfgs("mha", pattern=(("attn", "moe"), ("attn", "mlp")),
+                   n_layers=2, moe=MoEConfig(num_experts=4, top_k=2, d_ff=32))
+    model = T.Transformer(cfg, device="cpu")
+    assert isinstance(model.blocks[0].ffn, MoE)
+    assert isinstance(model.blocks[1].ffn, L.MLP)
 
 
 def test_init_params_is_seeded_and_scaled():
