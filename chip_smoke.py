@@ -6,12 +6,15 @@ with the fractal-sort scheduler), the query layer on TPC-H-shaped
 tables, the out-of-core stream (external sort and streaming queries
 of host data under a device byte budget), the distributed sort and the
 device store on a one-rank NCCL group, the plan autotuner and the
-paper's baseline sorts, and the MoE path (qwen3-moe-30b-a3b serving, its
-token dispatch on the fractal kernels).
+paper's baseline sorts, the MoE path (qwen3-moe-30b-a3b serving, its
+token dispatch on the fractal kernels), and the remaining model families
+(jamba's mamba + attention + MoE hybrid, xlstm's mLSTM and sLSTM,
+whisper's encoder-decoder, internvl2's patch prefix, and every config at
+smoke size).
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
                           [--query-log2n 26] [--stream-log2n 24]
-                          [--moe-layers 48] [--profile]
+                          [--moe-layers 48] [--hybrid-layers 16] [--profile]
 
 Phases, each fatal on failure:
 
@@ -73,11 +76,13 @@ then, with the sort data freed and TF32 off for float32 matmuls:
 7. K5 (flash attention) against its plain version (the naive fp32
    oracle) on the card at the reference's test shapes, at hd 8, 80, 96
    and 128, at Sq = 1 and Skv != Sq, with a q that is a strided slice of
-   a wider tensor, causal and not, and at the prefill shapes q, k, v
+   a wider tensor, causal and not, at the prefill shapes q, k, v
    (2, 2048, 32, 64) of llama3.2-1b and (2, 2048, 32, 128) of
    qwen3-moe-30b-a3b (phase 18's prefill, its kv heads repeated from
-   GQA 32/4); tolerance fp32 2e-5 (1e-4 at S = 2048: 2048-term sums in
-   another order), bf16 2e-2;
+   GQA 32/4), and at phase 19's whisper shapes: (2, 1500, 12, 64), the
+   encoder over 1500 frames, and q (2, 448, 12, 64) over 1500 keys, its
+   cross-attention; tolerance fp32 2e-5 (1e-4 at the prefill and whisper
+   shapes: 1500- and 2048-term sums in another order), bf16 2e-2;
 8. prefill: llama3.2-1b at full width and depth (``--lm-layers`` cuts
    depth for a rehearsal), fp32 weights from ``--seed``, B = 2 prompts of
    S = 2048 tokens through ``make_prefill_step`` with the kernel switch on
@@ -221,7 +226,8 @@ then, with the autotune data freed:
    (K1's counts, K2's ranks, the inverse permutation) bit-exact against
    the argsort dispatch (``ref.moe_dispatch_ref``) at (T, E) in {(1,
    128), (32, 128), (64, 128), (4096, 128), (32768, 128), (2**14, 128),
-   (2**16, 128), (2**16, 8)} on uniform, zipf(1.2) and one-expert ids,
+   (2**16, 128), (2**16, 8)} and at phase 19's jamba shapes (4, 16), (8,
+   16), (128, 16), (8192, 16) on uniform, zipf(1.2) and one-expert ids,
    one K1 and one K2 launch each; b. one full-width qwen3-moe layer (D
    2048, E 128, top-8, F 768, bf16) with a zero router sends every token
    to experts 0..7 at weight 1/8, aux 1; c. the same layer at T = 4096
@@ -240,14 +246,47 @@ then, with the autotune data freed:
    dispatch shape, the layer's ms beside its bound (its expert bytes or
    its bf16 flops), prefill ms, and serve ms a step beside the time to
    read every weight once.  The prefill and serve launches form the
-   kernel table's "moe" column.
+   kernel table's "moe" column;
+
+then, with the MoE model freed:
+
+19. the remaining model families on the card, data and weights from
+   ``(--seed, 19)``.  a. jamba-v0.1-52b, one period (8 layers) at full
+   width in fp32 (D 4096, d_inner 8192, N 16, 16 experts top-2 of width
+   14336, about 53 GB), capacity_factor = E, K5 on: 32 decode steps of B
+   = 2 within 1e-3 of the prefill, the prefill launching K1 and K2 once
+   per MoE layer and K5 once, each decode step K1 and K2 once per MoE
+   layer; b. jamba at full width in bf16, 16 of its 32 layers (26.0 B
+   parameters, 52.0 GB; ``--hybrid-layers`` cuts it further; a_log,
+   d_skip and the router fp32), random weights: a prefill of 2 x 2048
+   tokens launches K5 twice and K1 and K2 8 times each and gives finite
+   logits, then ``serve()`` of 8 requests with 4 slots at max_len 96
+   answers every one; prefill ms beside its bound (2 flops a
+   multiply-add of the active weights, 6.06 B a token as
+   ``active_params`` counts them, and the causal attention, on the bf16
+   peak) and ms a decode step beside the time to read every weight once; c. xlstm-125m at full width and depth in
+   fp32: a prefill of 2 x 2048, the chunked mLSTM within 2e-4 of its
+   token loop on layer 0's input, 96 decode steps within 1e-3 of the
+   prefill, ``serve()`` of 8 requests, prefill ms and the two sLSTM
+   layers' token loop ms; d. whisper-small at full width and depth in
+   fp32, stub frames (2, 1500, 768): ``encode_cross_kv`` (12 non-causal
+   K5 launches), a prefill of 448 tokens with the frames (36 K5
+   launches: encoder, causal self-attention, cross-attention at Sq 448,
+   Skv 1500) within 1e-3 of the plain attention, 16 decode steps with
+   the encoder's cross K/V within 1e-3 of the prefill; e. internvl2-76b
+   at full width in bf16, 8 of its 80 layers (8.9 B parameters): a
+   prefill of 256 stub patches + 2 x 2048 tokens launches K5 8 times and
+   gives finite (2, 2048, V) logits, its ms beside its bound; f. every
+   registered config at smoke size, K5 on: one prefill and one decode
+   step, finite.  Each model's peak memory is logged.  The launches of
+   19a-e form the kernel table's "families" column.
 
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
-11, 13-18).
+11, 13-19).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -552,23 +591,31 @@ def lm_phases(args, dev, card: str, path_counts: dict) -> tuple:
     full = (B, S, H, hd, S)
     moe_cfg = get_config(MOE_ARCH)
     moe_full = (B, S, moe_cfg.n_heads, moe_cfg.resolved_head_dim, S)
+    # phase 19's whisper shapes: the encoder over n_audio_ctx frames (no
+    # tile divides 1500) and the decoder's cross-attention to them
+    audio_cfg = get_config(AUDIO_ARCH)
+    audio_enc = (B, AUDIO_FRAMES, audio_cfg.n_heads,
+                 audio_cfg.resolved_head_dim, AUDIO_FRAMES)
+    audio_cross = (B, TEXT_CTX, *audio_enc[2:])
     # (B, Sq, H, hd, Skv, q a strided slice): the reference's test shapes,
     # one query row, fewer keys than queries, hd 8 and 80 (zero-padded to
     # the fragment depth), hd 96 and 128, an hd that takes the
-    # element-wise loads, a strided q, and the two models' prefill shapes
+    # element-wise loads, a strided q, the two models' prefill shapes, and
+    # whisper's encoder and cross-attention shapes
     shapes = ((2, 64, 4, 16, 64, False), (1, 48, 2, 8, 80, False),
               (2, 100, 2, 32, 100, False), (2, 1, 3, 64, 70, False),
               (1, 150, 2, 64, 40, False), (2, 77, 2, 8, 77, False),
               (1, 90, 2, 80, 130, False), (2, 33, 2, 96, 65, False),
               (1, 130, 2, 128, 70, False), (1, 33, 2, 20, 47, False),
               (2, 65, 2, 64, 65, True), (*full, False),
-              (*moe_full, False))
+              (*moe_full, False), (*audio_enc, False), (*audio_cross, False))
     for *shape, strided in shapes:
         shape = tuple(shape)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             tol = (2e-2 if dtype == torch.bfloat16
-                   else 1e-4 if shape in (full, moe_full) else 2e-5)
+                   else 1e-4 if shape in (full, moe_full, audio_enc,
+                                          audio_cross) else 2e-5)
             q, k, v = qkv(rng, shape, dtype)
             if strided:  # heads [1:1+H] and hd [0:hd) of a wider tensor
                 b, sq, h, d, _ = shape
@@ -2110,11 +2157,15 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 # one full-width layer's tokens: C = 320 at capacity 1.25
 MOE_LAYER_TOKENS = 4096
 # (T, E) of the dispatch checks: one token, a decode step's 4 slots x
-# top-8, prefill's 2 x 2048 x 8 assignments, and the reference bench's
-# shapes (benchmarks/bench_moe_dispatch.py:18), which are also timed
+# top-8, prefill's 2 x 2048 x 8 assignments, the reference bench's
+# shapes (benchmarks/bench_moe_dispatch.py:18), which are also timed, and
+# phase 19's jamba shapes at E = 16, top-2: 19a's decode (B = 2) and
+# prefill (2 x 32 tokens), 19b's serve step (4 slots) and prefill (2 x
+# 2048 tokens)
 MOE_DISPATCH_SHAPES = ((1, 128), (32, 128), (64, 128), (4096, 128),
                        (32768, 128), (1 << 14, 128), (1 << 16, 128),
-                       (1 << 16, 8))
+                       (1 << 16, 8), (4, 16), (8, 16), (128, 16),
+                       (8192, 16))
 MOE_BENCH_SHAPES = ((1 << 14, 128), (1 << 16, 128), (1 << 16, 8))
 MOE_CHECK_SEQ = 32  # decode against prefill: B = 2 prompts of 32 tokens
 
@@ -2432,6 +2483,423 @@ def moe_phases(args, dev, card: str, path_counts: dict) -> tuple:
     return e2e, errs, kernel_rows
 
 
+# phase 19's configurations and shapes
+HYBRID_ARCH, XLSTM_ARCH = "jamba-v0.1-52b", "xlstm-125m"
+AUDIO_ARCH, VLM_ARCH = "whisper-small", "internvl2-76b"
+HYBRID_LAYERS = 16  # of jamba's 32: two periods, 52.0 GB of bf16 weights
+VLM_LAYERS = 8  # of internvl2's 80: 17.9 GB of bf16 weights
+# whisper's n_audio_ctx (the reference's launch/dryrun.py:43) and n_text_ctx
+AUDIO_FRAMES, TEXT_CTX = 1500, 448
+FAMILY_CHECK_SEQ = 32  # jamba decode against prefill: B = 2 prompts of 32
+XLSTM_DECODE_STEPS = 96  # past the first 64-token mLSTM chunk
+AUDIO_DECODE_STEPS = 16
+
+
+def active_params(model) -> int:
+    """Parameters a token multiplies by: every weight but the embedding
+    table, an MoE layer's (E, D, F) experts at top_k / E."""
+    cfg = model.cfg
+    n = 0
+    for name, p in model.named_parameters():
+        if name == "embed" or name.startswith("encoder."):
+            continue
+        if p.dim() == 3:  # an MoE layer's experts
+            n += p.numel() * cfg.moe.top_k // cfg.moe.num_experts
+        else:
+            n += p.numel()
+    return n
+
+
+def prefill_bound_ms(model, B: int, S: int, prefix: int = 0) -> float:
+    """The least time of a bf16 prefill on the card: its products with
+    the active weights (2 flops a multiply-add, the unembedding of the S
+    text positions) and its causal attention scores and values over the
+    tensor cores' dense bf16 peak."""
+    cfg = model.cfg
+    T_ = B * (S + prefix)
+    head = cfg.d_model * cfg.vocab  # in active_params unless tied
+    body = active_params(model) - (0 if cfg.tie_embeddings else head)
+    lin = 2 * body * T_ + 2 * head * B * S
+    n_attn = sum(b.mixer_kind == "attn" for b in model.blocks)
+    L_ = S + prefix
+    attn = n_attn * 4 * B * cfg.n_heads * cfg.resolved_head_dim * (
+        L_ * (L_ + 1) // 2)
+    return (lin + attn) / BF16_FLOPS * 1e3
+
+
+def weight_bytes(model) -> int:
+    """What a decode step reads: every weight but the embedding table (the
+    einsums run every expert, whatever the routing)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters() if name != "embed")
+
+
+def families_phases(args, dev, card: str, path_counts: dict) -> list:
+    """Phase 19: the remaining model families on the card.  Adds
+    ``path_counts["families"]`` (the main-path runs of 19a-e); returns e2e
+    rows."""
+    from repro_torch.configs import get_config, list_configs, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as X
+    from repro_torch.train_lib import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = phase_rng(args.seed, 19)
+    families: dict = {}
+    e2e = []
+    k125 = ("fractal_histogram", "fractal_rank_kernel",
+            "flash_attention_kernel")
+
+    def generator() -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(
+            int(rng.integers(1 << 62)))
+
+    def counted(fn):
+        """Run ``fn`` on a main path: (its result, this run's launches),
+        which add to the families column."""
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for name, c in got.items():
+            families[name] = families.get(name, 0) + c
+        return out, {name: got[name] for name in k125}
+
+    def tokens_of(cfg, B, S):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dtype)
+
+    def built(cfg, dtype, what):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = T.Transformer(cfg, device=dev, dtype=dtype).init_params(
+            generator())
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        log(f"[families] {what} {cfg.name}: {cfg.n_layers} layers"
+            + (f" (+{cfg.encoder_layers} encoder)" if cfg.encoder_layers
+               else "")
+            + f", d_model {cfg.d_model}, vocab {cfg.vocab}: {n / 1e9:.3f} B "
+            f"{str(dtype)[6:]} parameters ({weight_bytes(model) / 1e9:.2f} "
+            f"GB read a decode step) in {time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        return model
+
+    def peak() -> float:
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def served(model, requests, n_moe: int) -> dict:
+        """serve() of ``requests`` with 4 slots at max_len 96: every one
+        answered in full, K1 and K2 launched (the scheduler's sorts, and
+        ``n_moe`` a decode step)."""
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            done, got = counted(lambda: serve(model, requests, batch_slots=4,
+                                              max_len=96))
+        serve_s = time.perf_counter() - t0
+        steps = int(re.search(r"(\d+) decode steps",
+                              printed.getvalue()).group(1))
+        bad = [r.rid for r in done if len(r.out) != r.max_new
+               or not all(0 <= t < model.cfg.vocab for t in r.out)]
+        if bad:
+            raise AssertionError(f"{model.cfg.name}: requests not answered "
+                                 f"in full: {bad}")
+        if min(got["fractal_histogram"], got["fractal_rank_kernel"]) < max(
+                1, n_moe * steps):
+            raise AssertionError(f"{model.cfg.name} serve launched {got} in "
+                                 f"{steps} steps with {n_moe} MoE layers")
+        log(f"[families] {model.cfg.name} serve: {len(done)}/"
+            f"{len(requests)} requests answered in {serve_s:.3f} s, {steps} "
+            f"decode steps; launches {json.dumps(got)}")
+        return {"wall_s": serve_s, "decode_steps": steps,
+                "ms_a_step": serve_s / steps * 1e3,
+                "generated_tokens": sum(len(r.out) for r in done)}
+
+    # -- a. jamba, one period at full width, fp32: decode against prefill --
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    E = cfg.moe.num_experts
+    n_moe = sum(f == "moe" for _, f in cfg.pattern)
+    n_attn = sum(m == "attn" for m, _ in cfg.pattern)
+    small = dataclasses.replace(
+        cfg, n_layers=len(cfg.pattern), use_pallas_attention=True,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=float(E)))
+    model = built(small, torch.float32, "19a")
+    B, S = 2, FAMILY_CHECK_SEQ
+    tokens = tokens_of(cfg, B, S)
+    full, on_prefill = counted(lambda: make_prefill_step(small)(
+        model, {"tokens": tokens}))
+    cache = T.init_cache(small, B, S, model.dtype, dev)
+    dec, on_decode = counted(lambda: torch.stack([
+        T.decode_step(model, small, cache, tokens[:, t:t + 1], t)[0][:, 0]
+        for t in range(S)], 1))
+    want = {"fractal_histogram": n_moe, "fractal_rank_kernel": n_moe,
+            "flash_attention_kernel": n_attn}
+    if on_prefill != want or on_decode != {
+            "fractal_histogram": n_moe * S, "fractal_rank_kernel": n_moe * S,
+            "flash_attention_kernel": 0}:
+        raise AssertionError(f"jamba one period launched {on_prefill} on a "
+                             f"prefill (expected {want}) and {on_decode} on "
+                             f"{S} decode steps (K1, K2 {n_moe} a step)")
+    err = check_close("jamba decode vs prefill logits", dec, full, 1e-3)
+    e2e.append({"name": f"19a {HYBRID_ARCH} one period fp32, decode vs "
+                        f"prefill, B={B} S={S}",
+                "max_abs_err": err, "peak_gib": peak()})
+    log(f"[families] 19a jamba {small.n_layers} layers fp32, capacity "
+        f"{float(E)}: {S} decode steps within 1e-3 of the prefill (max "
+        f"|err| {err:.3e}); launches {on_prefill} on the prefill, "
+        f"{on_decode} on the decode; peak {peak():.2f} GiB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, cache, full, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- b. jamba at full width, bf16, 16 of 32 layers ------------------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=args.hybrid_layers)
+    model = built(cfg, torch.bfloat16, "19b")
+    n_moe = sum(f == "moe" for _, f in cfg.pattern) * cfg.repeats
+    n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.repeats
+    B, S = PREFILL_BATCH, PREFILL_SEQ
+    batch = {"tokens": tokens_of(cfg, B, S)}
+    prefill = make_prefill_step(dataclasses.replace(
+        cfg, use_pallas_attention=True))
+    logits, on_prefill = counted(lambda: prefill(model, batch))
+    want = {"fractal_histogram": n_moe, "fractal_rank_kernel": n_moe,
+            "flash_attention_kernel": n_attn}
+    if on_prefill != want:
+        raise AssertionError(f"jamba prefill launched {on_prefill}, "
+                             f"expected {want}")
+    if (logits.shape != (B, S, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"jamba logits {tuple(logits.shape)} not "
+                             f"finite or not of ({B}, {S}, {cfg.vocab})")
+    del logits
+    prefill_peak = peak()
+    log(f"[families] 19b jamba prefill B={B} S={S}: logits finite; "
+        f"launches {on_prefill}; peak {prefill_peak:.2f} GiB")
+    serve_row = served(model, make_requests(8, cfg.vocab, rng), n_moe)
+    if args.profile:
+        log(json.dumps({"profile_jamba_prefill": profile_call(
+            lambda: prefill(model, batch)), "card": card}))
+        cache = T.init_cache(cfg, 4, 96, model.dtype, dev)
+        step_tokens = batch["tokens"][:, :2].reshape(4, 1)
+        with torch.inference_mode():
+            log(json.dumps({"profile_jamba_decode_step": profile_call(
+                lambda: T.decode_step(model, cfg, cache, step_tokens, 0)),
+                "card": card}))
+        del cache
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
+    e2e.append({
+        "name": f"19b prefill {HYBRID_ARCH} {cfg.n_layers} of 32 layers "
+                f"bf16 B={B} S={S}, K5 attention",
+        "ms": prefill_ms, "bound_ms": prefill_bound_ms(model, B, S),
+        "bound_by": "operations", "active_params": active_params(model),
+        "tokens_per_s": B * S / prefill_ms * 1e3, "peak_gib": prefill_peak})
+    e2e.append({
+        "name": f"19b serve {HYBRID_ARCH} {cfg.n_layers} layers bf16: 8 "
+                f"requests, 4 slots, max_len 96",
+        **serve_row,
+        "weight_read_bound_ms_a_step": weight_bytes(model)
+        / HBM_BYTES_PER_S * 1e3, "weight_gb": weight_bytes(model) / 1e9,
+        "peak_gib": peak()})
+    for row in e2e[-2:]:
+        log(f"[e2e] {row}")
+    log(f"[families] 19b done in {time.perf_counter() - t0:.1f} s")
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- c. xlstm-125m at full width and depth, fp32 --------------------------
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    model = built(cfg, torch.float32, "19c")
+    B, S = PREFILL_BATCH, PREFILL_SEQ
+    batch = {"tokens": tokens_of(cfg, B, S)}
+    prefill = make_prefill_step(cfg)
+    logits, _ = counted(lambda: prefill(model, batch))
+    if (logits.shape != (B, S, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"xlstm logits {tuple(logits.shape)} not "
+                             f"finite or not of ({B}, {S}, {cfg.vocab})")
+    # the chunked mLSTM against its token loop on layer 0's own input
+    with torch.inference_mode():
+        block = model.blocks[0]
+        h = L.rms_norm(model.embed[batch["tokens"]], block.norm1.scale,
+                       cfg.rms_eps)
+        chunked = X.mlstm_apply_chunked(block.mixer, cfg, h,
+                                        cfg.mlstm_chunk)
+        recurrent = X.mlstm_apply_recurrent(block.mixer, cfg, h)
+    mlstm_err = check_close("xlstm chunked vs recurrent mLSTM", chunked,
+                            recurrent, 2e-4)
+    del chunked, recurrent
+    steps = XLSTM_DECODE_STEPS
+    cache = T.init_cache(cfg, B, steps, model.dtype, dev)
+    dec, _ = counted(lambda: torch.stack([
+        T.decode_step(model, cfg, cache, batch["tokens"][:, t:t + 1], t)[0][
+            :, 0] for t in range(steps)], 1))
+    decode_err = check_close("xlstm decode vs prefill logits", dec,
+                             logits[:, :steps], 1e-3)
+    del logits, dec, cache
+    log(f"[families] 19c xlstm prefill B={B} S={S} finite; chunked mLSTM "
+        f"(chunk {cfg.mlstm_chunk}) within 2e-4 of its token loop at full "
+        f"width (max |err| {mlstm_err:.3e}); {steps} decode steps within "
+        f"1e-3 of the prefill (max |err| {decode_err:.3e})")
+    serve_row = served(model, make_requests(8, cfg.vocab, rng), 0)
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
+    slstm = [b for b in model.blocks if b.mixer_kind == "slstm"]
+    with torch.inference_mode():
+        h = randn((B, S, cfg.d_model))
+        slstm_ms = sum(cuda_ms(lambda: X.slstm_apply(b.mixer, cfg, h), 1, 3)
+                       for b in slstm)
+    e2e.append({
+        "name": f"19c prefill {XLSTM_ARCH} fp32 B={B} S={S}",
+        "ms": prefill_ms, "tokens_per_s": B * S / prefill_ms * 1e3,
+        "slstm_token_loop_ms": slstm_ms, "slstm_layers": len(slstm),
+        "slstm_share": slstm_ms / prefill_ms,
+        "mlstm_chunked_vs_recurrent_max_abs_err": mlstm_err,
+        "decode_vs_prefill_max_abs_err": decode_err, "peak_gib": peak()})
+    e2e.append({"name": f"19c serve {XLSTM_ARCH} fp32: 8 requests, 4 slots, "
+                        f"max_len 96", **serve_row})
+    for row in e2e[-2:]:
+        log(f"[e2e] {row}")
+    log(f"[families] 19c done in {time.perf_counter() - t0:.1f} s")
+    del model, batch, h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- d. whisper-small at full width and depth, fp32 ------------------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), use_pallas_attention=True)
+    model = built(cfg, torch.float32, "19d")
+    B = PREFILL_BATCH
+    frames = randn((B, AUDIO_FRAMES, cfg.d_model))
+    (cross, _), on_encode = counted(
+        lambda: T.encode_cross_kv(model, cfg, frames))
+    if on_encode["flash_attention_kernel"] != cfg.encoder_layers:
+        raise AssertionError(f"whisper's encoder launched K5 "
+                             f"{on_encode['flash_attention_kernel']} times, "
+                             f"expected {cfg.encoder_layers}")
+    batch = {"tokens": tokens_of(cfg, B, TEXT_CTX), "frontend": frames}
+    prefill = make_prefill_step(cfg)
+    logits, on_prefill = counted(lambda: prefill(model, batch))
+    k5 = cfg.encoder_layers + 2 * cfg.n_layers  # encoder, self, cross
+    if on_prefill["flash_attention_kernel"] != k5:
+        raise AssertionError(f"whisper's prefill launched K5 "
+                             f"{on_prefill['flash_attention_kernel']} times, "
+                             f"expected {k5}")
+    with torch.inference_mode():
+        plain = make_prefill_step(dataclasses.replace(
+            cfg, use_pallas_attention=False))(model, batch)
+    prefill_err = check_close("whisper prefill, K5 vs plain attention",
+                              logits, plain, 1e-3)
+    del plain
+    steps = AUDIO_DECODE_STEPS
+    cache = T.init_cache(cfg, B, steps, model.dtype, dev)
+    dec, _ = counted(lambda: torch.stack([
+        T.decode_step(model, cfg, cache, batch["tokens"][:, t:t + 1], t,
+                      cross_kv=cross)[0][:, 0] for t in range(steps)], 1))
+    decode_err = check_close("whisper decode (encode_cross_kv) vs prefill",
+                             dec, logits[:, :steps], 1e-3)
+    del logits, dec, cache
+    encode_ms = cuda_ms(lambda: T.encode_cross_kv(model, cfg, frames), 1, 3)
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
+    e2e.append({
+        "name": f"19d {AUDIO_ARCH} fp32: encoder over B={B} x "
+                f"{AUDIO_FRAMES} frames, prefill {TEXT_CTX} tokens, K5",
+        "encode_ms": encode_ms, "prefill_ms": prefill_ms,
+        "k5_launches_encode": on_encode["flash_attention_kernel"],
+        "k5_launches_prefill": on_prefill["flash_attention_kernel"],
+        "prefill_vs_plain_max_abs_err": prefill_err,
+        "decode_vs_prefill_max_abs_err": decode_err, "peak_gib": peak()})
+    log(f"[e2e] {e2e[-1]}")
+    log(f"[families] 19d whisper: encoder {cfg.encoder_layers} K5 launches "
+        f"at ({B}, {AUDIO_FRAMES}, {cfg.n_heads}, {cfg.resolved_head_dim}) "
+        f"non-causal; prefill {k5} (self {TEXT_CTX} causal, cross "
+        f"{TEXT_CTX} x {AUDIO_FRAMES}) within 1e-3 of plain attention; "
+        f"{steps} decode steps with encode_cross_kv within 1e-3 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, batch, cross, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- e. internvl2-76b at full width, bf16, 8 of 80 layers -----------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS,
+                              use_pallas_attention=True)
+    model = built(cfg, torch.bfloat16, "19e")
+    B, S, P = PREFILL_BATCH, PREFILL_SEQ, cfg.num_patches
+    batch = {"tokens": tokens_of(cfg, B, S),
+             "frontend": randn((B, P, cfg.d_model), torch.bfloat16)}
+    prefill = make_prefill_step(cfg)
+    logits, on_prefill = counted(lambda: prefill(model, batch))
+    if on_prefill["flash_attention_kernel"] != cfg.n_layers:
+        raise AssertionError(f"internvl2 prefill launched {on_prefill}, "
+                             f"expected K5 {cfg.n_layers} times")
+    if (logits.shape != (B, S, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"internvl2 logits {tuple(logits.shape)} not "
+                             f"finite or not of ({B}, {S}, {cfg.vocab})")
+    del logits
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), 1, 3)
+    e2e.append({
+        "name": f"19e prefill {VLM_ARCH} {cfg.n_layers} of 80 layers bf16 "
+                f"B={B}, {P} patches + {S} tokens, K5 attention",
+        "ms": prefill_ms, "bound_ms": prefill_bound_ms(model, B, S, P),
+        "bound_by": "operations", "peak_gib": peak()})
+    log(f"[e2e] {e2e[-1]}")
+    log(f"[families] 19e internvl2: logits ({B}, {S}, {cfg.vocab}) finite, "
+        f"{on_prefill['flash_attention_kernel']} K5 launches "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_counts["families"] = families
+
+    # -- f. every registered config at smoke size -------------------------------
+    t0 = time.perf_counter()
+    for name in list_configs():
+        cfg = dataclasses.replace(smoke_config(get_config(name)),
+                                  use_pallas_attention=True)
+        model = T.Transformer(cfg, device=dev).init_params(generator())
+        B, S = 2, 32
+        tokens = tokens_of(cfg, B, S)
+        n_fe = {"audio": 16, "patch": cfg.num_patches}.get(cfg.frontend)
+        fe = None if n_fe is None else randn((B, n_fe, cfg.d_model))
+        with torch.inference_mode():
+            logits = make_prefill_step(cfg)(model, {"tokens": tokens,
+                                                    "frontend": fe})
+            cross = (T.encode_cross_kv(model, cfg, fe)[0]
+                     if cfg.encoder_layers else None)
+            cache = T.init_cache(cfg, B, S, model.dtype, dev)
+            step, _ = T.decode_step(model, cfg, cache, tokens[:, :1], 0,
+                                    cross_kv=cross)
+        torch.cuda.synchronize()
+        for what, t, shape in (("prefill", logits, (B, S, cfg.vocab)),
+                               ("decode", step, (B, 1, cfg.vocab))):
+            if t.shape != shape or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{cfg.name} {what} logits "
+                                     f"{tuple(t.shape)} not finite or not of "
+                                     f"{shape}")
+        del model, logits, cache, step, cross
+    log(f"[families] 19f every config at smoke size ({len(list_configs())}: "
+        f"{', '.join(list_configs())}): one prefill with K5 on and one "
+        f"decode step on the card, finite ({time.perf_counter() - t0:.1f} s)")
+    log(f"[launches] families path (phase 19 in "
+        f"{time.perf_counter() - t_phase:.1f} s): {json.dumps(families)}")
+    return e2e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2448,6 +2916,10 @@ def main() -> int:
     ap.add_argument("--moe-layers", type=int, default=None,
                     help="cut qwen3-moe-30b-a3b to this many layers in phase "
                          "18 (default: all 48)")
+    ap.add_argument("--hybrid-layers", type=int, default=HYBRID_LAYERS,
+                    help="cut jamba-v0.1-52b to this many layers in phase "
+                         "19b, a multiple of its period of 8 (default 16 "
+                         "of 32: 52 GB of bf16 weights; 8 for a rehearsal)")
     ap.add_argument("--query-log2n", type=int, default=26,
                     help="about 2**N lineitem rows (2**(N-2) orders) in the "
                          "query phases (default 26; 20 for a rehearsal)")
@@ -2455,6 +2927,8 @@ def main() -> int:
                     help="the first 2**N lineitem rows the streaming "
                          "queries read from the host (default 24)")
     args = ap.parse_args()
+    if args.hybrid_layers <= 0 or args.hybrid_layers % 8:
+        ap.error("--hybrid-layers must be a positive multiple of 8")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2986,9 +3460,15 @@ def main() -> int:
     moe_e2e, moe_errs, moe_kernel_rows = moe_phases(args, dev, card,
                                                     path_counts)
     e2e += moe_e2e
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"before the families phase")
+    e2e += families_phases(args, dev, card, path_counts)
 
     # every kernel launched on a main path (sort, prefill, serve, query,
-    # stream, distributed, device store, autotune / baselines, moe)
+    # stream, distributed, device store, autotune / baselines, moe,
+    # families)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "

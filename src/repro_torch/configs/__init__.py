@@ -1,4 +1,4 @@
-"""Architecture configs (one module per ported architecture) + registry."""
+"""Architecture configs (one module per architecture) + registry."""
 
 from repro_torch.configs.base import (
     MambaConfig,

@@ -4,9 +4,8 @@ the reduced smoke-config generator.
 A copy of the reference package's ``configs/base.py`` (pure Python), kept
 here so that the port imports nothing of the reference.  Config modules
 register themselves on import; ``get_config`` imports
-``repro_torch.configs.<name>``.  Only the families the port runs have a
-module here (``llama3_2_1b``, ``qwen3_moe_30b_a3b``); the others come
-with their families.
+``repro_torch.configs.<name>``: one module for each of the reference's
+ten architectures, each a copy of the reference's.
 
 Every architecture is expressed as a *layer pattern* — a period of
 (mixer, ffn) blocks repeated ``n_layers / len(pattern)`` times.

@@ -1,0 +1,18 @@
+"""nemotron-4-15b [dense]: GQA, squared-ReLU (non-gated) MLP.
+[arXiv:2402.16819; unverified]"""
+
+from repro_torch.configs.base import ModelConfig, register
+
+register(ModelConfig(
+    name="nemotron-4-15b",
+    family="dense",
+    n_layers=32,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=24576,
+    vocab=256000,
+    pattern=(("attn", "mlp"),),
+    act="relu2",
+))

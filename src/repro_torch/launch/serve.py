@@ -3,6 +3,8 @@ fractal-sort request scheduler (port of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --smoke --device cpu
 
 Requests arrive with prompt lengths and token budgets; the scheduler
 orders the admission queue by remaining-length bucket using the paper's
@@ -11,9 +13,16 @@ model's device, so on the card through kernels K1 and K2), then the
 decode loop advances all active slots one token per step, retiring and
 refilling slots as budgets are exhausted.
 
-The loop keeps the reference's behaviour token for token, including its
-``decode(..., pos.max())``: every slot's K/V is written at the largest
-slot position (a fault of the reference, ROADMAP queue 3).
+Every registered architecture is served, as the reference serves it: an
+enc-dec model (whisper) runs its decoder alone, with no ``cross_kv``.
+
+The loop keeps the reference's behaviour token for token, faults
+included (ROADMAP queue 3):
+
+* one decode position for every slot, ``decode(..., pos.max())``: every
+  slot's K/V is written at the largest slot position;
+* no clearing of a slot on refill: a new request inherits the previous
+  one's K/V and, in mamba and xLSTM layers, its recurrent state.
 """
 
 from __future__ import annotations

@@ -1,3 +1,5 @@
-"""The LM scaffold's models: decoder-only transformers, dense and MoE
-(``layers``, ``moe``, ``transformer``), and weight conversion from the
-reference package (``convert``)."""
+"""The LM scaffold's models: the assembler of every family
+(``transformer``: decoder-only, hybrid, recurrent, enc-dec and vlm) and
+its sublayers (``layers``: attention and MLPs; ``moe``; ``ssm``: mamba;
+``xlstm``: mLSTM and sLSTM), and weight conversion from the reference
+package (``convert``)."""

@@ -231,7 +231,7 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     if kv_seq_axis is not None:
         raise NotImplementedError(
             "split-KV decode over a sequence-sharded cache is not ported "
-            "yet (ROADMAP queue 1: the LM scaffold's sharding)")
+            "yet (ROADMAP queue 1, item 3: the LM's sharding)")
     pos = int(pos)
     hd = cfg.resolved_head_dim
     B = x.shape[0]

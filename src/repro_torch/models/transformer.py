@@ -1,24 +1,29 @@
-"""Model assembler (port of ``repro.models.transformer``, dense and MoE
-paths).
+"""Model assembler: decoder-only, hybrid, recurrent and encoder-decoder LMs
+from a ``ModelConfig`` layer pattern (port of
+``repro.models.transformer``).
 
 A :class:`Transformer` holds the token embedding, one :class:`Block` per
-layer and the final norm; the reference stacks one period of blocks over
+layer and the final norm, and for an enc-dec config (whisper) an
+:class:`Encoder`; the reference stacks one period of blocks over
 ``cfg.repeats`` and scans it, which here becomes a Python loop over
 ``cfg.n_layers`` blocks (layer ``r * len(pattern) + i`` is block ``i`` of
 repeat ``r``).  :func:`forward` / :func:`forward_hidden` /
-:func:`unembed` / :func:`init_cache` / :func:`decode_step` keep the
-reference's signatures with the model in place of the parameter pytree.
+:func:`unembed` / :func:`init_cache` / :func:`encode_cross_kv` /
+:func:`decode_step` keep the reference's signatures with the model in
+place of the parameter pytree.
 
-Supported: mixer ``attn``, ffns ``mlp``, ``moe`` (:mod:`.moe`, one rank)
-and ``none``.  The other mixers (``mamba``, ``mlstm``, ``slstm``), the
-encoder-decoder stack and the ``patch`` frontend raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them;
-nothing falls back.
+Block kinds: mixers ``attn``, ``mamba`` (:mod:`.ssm`), ``mlstm`` and
+``slstm`` (:mod:`.xlstm`); ffns ``mlp``, ``moe`` (:mod:`.moe`, one rank)
+and ``none``.  An enc-dec config adds a bidirectional encoder stack and a
+cross-attention sublayer in every decoder block; a ``patch`` frontend
+(vlm) prepends stub patch embeddings.  The sequence-sharded decode cache
+(``kv_shards``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import copy
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -26,45 +31,95 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fractal_sort import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.moe import MoE, moe_apply
 
-__all__ = ["Block", "Transformer", "forward", "forward_hidden", "unembed",
-           "init_cache", "decode_step"]
+__all__ = ["Block", "Encoder", "Transformer", "forward", "forward_hidden",
+           "unembed", "init_cache", "encode_cross_kv", "decode_step"]
 
-_NOT_YET = {
-    "mamba": "the mamba mixer (models/ssm.py)",
-    "mlstm": "the mLSTM mixer (models/xlstm.py)",
-    "slstm": "the sLSTM mixer (models/xlstm.py)",
+_ENCODER_PATTERN = (("attn", "mlp"),)
+
+
+class _Mixer(NamedTuple):
+    """What the model needs of one mixer kind: ``module(cfg, dtype,
+    device)``; ``apply(p, cfg, h, causal) -> h`` over a sequence;
+    ``decode(p, cfg, h, cache, pos, kv_seq_axis) -> h`` for one token,
+    updating the layer's cache dict in place; ``init_cache(cfg, B,
+    max_len, dtype, device) -> cache``."""
+    module: type
+    apply: Callable
+    decode: Callable
+    init_cache: Callable
+
+
+def _attn_apply(p, cfg: ModelConfig, h, causal: bool):
+    return L.attn_apply(p, cfg, h, causal=causal, chunk_q=cfg.attn_chunk_q,
+                        chunk_kv=cfg.attn_chunk_kv)[0]
+
+
+def _attn_decode(p, cfg: ModelConfig, h, c: dict, pos, kv_seq_axis):
+    h, c["k"], c["v"] = L.attn_decode(p, cfg, h, c["k"], c["v"], pos,
+                                      kv_seq_axis=kv_seq_axis)
+    return h
+
+
+def _attn_cache(cfg: ModelConfig, B: int, max_len: int, dtype, device):
+    shape = (B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _one_token(cell: Callable) -> Callable:
+    """A cell on (B, D) as a step on (B, 1, D)."""
+    def step(p, cfg, h, state):
+        h, state = cell(p, cfg, h[:, 0], state)
+        return h[:, None], state
+    return step
+
+
+def _recurrent(kind: str, module: type, apply: Callable, step: Callable,
+               init_state: Callable) -> _Mixer:
+    """A recurrent mixer: its cache is ``{kind: state}``, replaced by
+    each step; the causal flag means nothing to it."""
+    def decode(p, cfg, h, c, pos, kv_seq_axis):
+        h, c[kind] = step(p, cfg, h, c[kind])
+        return h
+    return _Mixer(
+        module, lambda p, cfg, h, causal: apply(p, cfg, h), decode,
+        lambda cfg, B, max_len, dtype, device: {
+            kind: init_state(cfg, B, dtype, device)})
+
+
+_MIXERS = {
+    "attn": _Mixer(L.Attention, _attn_apply, _attn_decode, _attn_cache),
+    "mamba": _recurrent("mamba", S.Mamba, S.mamba_apply, S.mamba_decode,
+                        S.mamba_init_cache),
+    "mlstm": _recurrent("mlstm", X.MLSTM, X.mlstm_apply,
+                        _one_token(X.mlstm_cell), X.mlstm_init_state),
+    "slstm": _recurrent("slstm", X.SLSTM, X.slstm_apply,
+                        _one_token(X.slstm_cell), X.slstm_init_state),
 }
 
 
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1: the LM scaffold's "
-        f"remaining families)")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for mixer, ffn in cfg.pattern:
-        if mixer != "attn":
-            _refuse(_NOT_YET.get(mixer, f"mixer {mixer!r}"))
-        if ffn not in ("mlp", "moe", "none"):
-            _refuse(_NOT_YET.get(ffn, f"ffn {ffn!r}"))
-    if cfg.encoder_layers:
-        _refuse("the encoder-decoder stack (whisper)")
-    if cfg.frontend == "patch":
-        _refuse("the patch frontend (vlm)")
-
-
 class Block(nn.Module):
-    """norm1 + attention mixer, then norm2 + ffn: an MLP, an
-    :class:`~repro_torch.models.moe.MoE`, or none."""
+    """norm1 + a mixer (``attn``, ``mamba``, ``mlstm`` or ``slstm``); in
+    an enc-dec decoder, norm_x + cross-attention; then norm2 + ffn: an
+    MLP, an :class:`~repro_torch.models.moe.MoE`, or none."""
 
-    def __init__(self, cfg: ModelConfig, ffn: str, dtype, device):
+    def __init__(self, cfg: ModelConfig, mixer: str, ffn: str, dtype, device,
+                 cross: bool = False):
         super().__init__()
+        if mixer not in _MIXERS:
+            raise ValueError(f"unknown mixer {mixer!r}: one of "
+                             f"{sorted(_MIXERS)}")
+        self.mixer_kind = mixer
         self.ffn_kind = ffn
         self.norm1 = L.RMSNorm(cfg.d_model, dtype, device)
-        self.mixer = L.Attention(cfg, dtype, device)
+        self.mixer = _MIXERS[mixer].module(cfg, dtype, device)
+        if cross:
+            self.norm_x = L.RMSNorm(cfg.d_model, dtype, device)
+            self.cross = L.Attention(cfg, dtype, device)
         if ffn != "none":
             self.norm2 = L.RMSNorm(cfg.d_model, dtype, device)
             self.ffn = (MoE(cfg, dtype, device) if ffn == "moe"
@@ -72,13 +127,29 @@ class Block(nn.Module):
 
     def init_params(self, generator: torch.Generator) -> None:
         self.mixer.init_params(generator)
+        if hasattr(self, "cross"):
+            self.cross.init_params(generator)
         if self.ffn_kind != "none":
             self.ffn.init_params(generator)
 
 
+class Encoder(nn.Module):
+    """The enc-dec encoder: ``cfg.encoder_layers`` (attn, mlp) blocks run
+    without a causal mask, and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block(cfg, mixer, ffn, dtype, device)
+            for _ in range(cfg.encoder_layers)
+            for mixer, ffn in _ENCODER_PATTERN)
+        self.final_norm = L.RMSNorm(cfg.d_model, dtype, device)
+
+
 class Transformer(nn.Module):
-    """Decoder-only LM of ``cfg``: ``embed`` (V, D), ``blocks``,
-    ``final_norm`` and, without tied embeddings, ``lm_head`` (D, V).
+    """LM of ``cfg``: ``embed`` (V, D), ``blocks``, ``final_norm``,
+    without tied embeddings ``lm_head`` (D, V), and for an enc-dec config
+    ``encoder``.
 
     ``device=None`` means ``"cuda"`` and raises without a card.  The
     parameters are allocated here and filled by :meth:`init_params` (or
@@ -86,18 +157,20 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
         super().__init__()
-        _check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = L.empty_param((cfg.vocab, cfg.d_model), dtype,
                                    device)
+        cross = cfg.encoder_layers > 0
         self.blocks = nn.ModuleList(
-            Block(cfg, ffn, dtype, device)
-            for _ in range(cfg.repeats) for _, ffn in cfg.pattern)
+            Block(cfg, mixer, ffn, dtype, device, cross=cross)
+            for _ in range(cfg.repeats) for mixer, ffn in cfg.pattern)
         self.final_norm = L.RMSNorm(cfg.d_model, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = L.empty_param((cfg.d_model, cfg.vocab), dtype,
                                          device)
+        if cross:
+            self.encoder = Encoder(cfg, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -110,7 +183,7 @@ class Transformer(nn.Module):
     def init_params(self, generator: torch.Generator) -> "Transformer":
         """Random weights from ``generator`` (on the model's device):
         dense weights normal / sqrt(d_in), the embedding normal * 0.02,
-        norm scales one.  Returns the model."""
+        norm scales one, each mixer's own init.  Returns the model."""
         z = torch.randn(self.embed.shape, generator=generator,
                         device=self.device, dtype=torch.float32)
         self.embed.copy_(z * 0.02)
@@ -119,6 +192,9 @@ class Transformer(nn.Module):
             block.init_params(generator)
         if not self.cfg.tie_embeddings:
             L.dense_init(self.lm_head, generator)
+        if hasattr(self, "encoder"):
+            for block in self.encoder.blocks:
+                block.init_params(generator)
         return self
 
 
@@ -141,12 +217,29 @@ def _ffn_apply(p: Block, cfg: ModelConfig, x):
     return x + h.to(x.dtype), aux
 
 
-def _block_apply(p: Block, cfg: ModelConfig, x, *, causal: bool):
+def _block_apply(p: Block, cfg: ModelConfig, x, *, causal: bool,
+                 enc_out=None):
     """Returns (x, aux), as :func:`_ffn_apply`."""
     h = L.rms_norm(x, p.norm1.scale, cfg.rms_eps)
-    h, _ = L.attn_apply(p.mixer, cfg, h, causal=causal,
-                        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    return _ffn_apply(p, cfg, x + h.to(x.dtype))
+    # keep the residual stream in the model's dtype (the fp32 SSM and gate
+    # math must not promote it)
+    x = x + _MIXERS[p.mixer_kind].apply(p.mixer, cfg, h, causal).to(
+        x.dtype)
+    if enc_out is not None:
+        h = L.rms_norm(x, p.norm_x.scale, cfg.rms_eps)
+        h, _ = L.attn_apply(p.cross, cfg, h, causal=False, kv_x=enc_out,
+                            use_rope=False, chunk_q=cfg.attn_chunk_q,
+                            chunk_kv=cfg.attn_chunk_kv)
+        x = x + h.to(x.dtype)
+    return _ffn_apply(p, cfg, x)
+
+
+def _encode(encoder: Encoder, cfg: ModelConfig, x):
+    """The encoder over frame embeddings (B, S_enc, D) of its dtype.
+    Returns its normed output."""
+    for block in encoder.blocks:
+        x, _ = _block_apply(block, cfg, x, causal=False)
+    return L.rms_norm(x, encoder.final_norm.scale, cfg.rms_eps)
 
 
 def unembed(model: Transformer, cfg: ModelConfig):
@@ -157,23 +250,37 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
                    frontend_embeds=None):
     """Final hidden states (pre-unembedding).  Returns (h (B,S,D), aux);
     aux is the MoE load-balancing loss summed over the layers in fp32,
-    zero for dense models."""
-    if frontend_embeds is not None:
-        _refuse("frontend embeddings (enc-dec and vlm)")
+    zero for models without MoE."""
     x = model.embed[tokens]
+    enc_out = None
+    if cfg.encoder_layers and frontend_embeds is not None:
+        enc_out = _encode(model.encoder, cfg,
+                          frontend_embeds.to(model.dtype))
+    prefix = 0
+    if cfg.frontend == "patch" and frontend_embeds is not None:
+        prefix = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
-        x, a = _block_apply(block, cfg, x, causal=True)
+        x, a = _block_apply(block, cfg, x, causal=True, enc_out=enc_out)
         if a is not None:
             aux = aux + a
     x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
+    if prefix:
+        x = x[:, prefix:]
     return x, aux
 
 
 def forward(model: Transformer, cfg: ModelConfig, tokens,
             frontend_embeds=None):
-    """Logits for a token batch.  tokens: (B, S) integer.  Returns
-    (logits (B, S, V), aux_loss)."""
+    """Logits for a token batch.
+
+    tokens: (B, S) integer.  ``frontend_embeds``:
+      * audio (enc-dec): (B, S_enc, D) stub frame embeddings -> encoder;
+      * patch (vlm): (B, P, D) stub patch embeddings, prepended to the
+        sequence and cut off after the final norm.
+
+    Returns (logits (B, S, V), aux_loss)."""
     x, aux = forward_hidden(model, cfg, tokens, frontend_embeds)
     return x @ unembed(model, cfg), aux
 
@@ -185,35 +292,67 @@ def forward(model: Transformer, cfg: ModelConfig, tokens,
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
                device=None, kv_shards: int = 1) -> list:
-    """Decode cache: one ``{"k", "v"}`` dict of zero (B, max_len, KV, hd)
-    tensors per layer.  ``device=None`` means ``"cuda"``."""
-    _check_supported(cfg)
+    """Decode cache, one dict per layer: ``{"k", "v"}`` zero (B, max_len,
+    KV, hd) tensors for attention, ``{"mamba": ...}``, ``{"mlstm": ...}``
+    or ``{"slstm": ...}`` zero recurrent states for the others.
+    Cross-attention K/V are not part of it: :func:`encode_cross_kv` makes
+    them once a request.  ``device=None`` means ``"cuda"``."""
     if kv_shards != 1:
         raise NotImplementedError(
             "sequence-sharded decode caches are not ported yet (ROADMAP "
-            "queue 1: the LM scaffold's sharding)")
+            "queue 1, item 3: the LM's sharding)")
     device = resolve_device(device)
-    shape = (B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+    return [_MIXERS[mixer].init_cache(cfg, B, max_len, dtype, device)
+            for _ in range(cfg.repeats) for mixer, _ in cfg.pattern]
+
+
+def encode_cross_kv(model: Transformer, cfg: ModelConfig, frontend_embeds):
+    """Enc-dec: run the encoder once.  Returns (one ``{"ck", "cv"}`` dict
+    of (B, S_enc, KV, hd) tensors per decoder layer, enc_out).
+
+    As in the reference, the frames are not cast to the model's dtype
+    here (``forward_hidden`` casts them): the encoder and the cross K/V
+    run in the wider of the two dtypes, as JAX promotes bf16 weights
+    against fp32 frames, on a copy of the encoder cast to it.  Frames
+    narrower than the model differ: the reference keeps its encoder's
+    residual stream in the frames' dtype, the port in the model's."""
+    dtype = torch.promote_types(frontend_embeds.dtype, model.dtype)
+    encoder = (model.encoder if dtype == model.dtype
+               else copy.deepcopy(model.encoder).to(dtype))
+    enc_out = _encode(encoder, cfg, frontend_embeds.to(dtype))
+    hd = cfg.resolved_head_dim
+    B, Skv, _ = enc_out.shape
+    cross_kv = [{
+        name: (enc_out @ w.to(dtype)).reshape(B, Skv, cfg.n_kv_heads, hd)
+        for name, w in (("ck", block.cross.wk), ("cv", block.cross.wv))
+    } for block in model.blocks]
+    return cross_kv, enc_out
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache: list, token,
                 pos, *, cross_kv=None, kv_seq_axis: Optional[str] = None):
     """One decode step.  token: (B, 1) integer; pos: int (or 0-d tensor).
 
-    Returns (logits (B, 1, V), cache); the cache tensors are updated in
-    place (the reference returns new arrays).  MoE blocks route this
-    step's B tokens alone, and their aux loss is dropped."""
-    if cross_kv is not None:
-        _refuse("cross-attention decode (enc-dec)")
+    Returns (logits (B, 1, V), cache); the attention caches are updated in
+    place and the recurrent states replaced in their layer's dict (the
+    reference returns a new cache).  ``cross_kv`` (from
+    :func:`encode_cross_kv`) enables the enc-dec path.  MoE blocks route
+    this step's B tokens alone, and their aux loss is dropped."""
     x = model.embed[token]
-    for block, c in zip(model.blocks, cache):
+    for layer, (block, c) in enumerate(zip(model.blocks, cache)):
         h = L.rms_norm(x, block.norm1.scale, cfg.rms_eps)
-        h, c["k"], c["v"] = L.attn_decode(block.mixer, cfg, h, c["k"],
-                                          c["v"], pos,
-                                          kv_seq_axis=kv_seq_axis)
-        x, _ = _ffn_apply(block, cfg, x + h.to(x.dtype))
+        h = _MIXERS[block.mixer_kind].decode(block.mixer, cfg, h, c, pos,
+                                             kv_seq_axis)
+        x = x + h.to(x.dtype)
+        if cross_kv is not None:
+            # every encoder position is visible: pos past any of them, no
+            # rope, the cross K/V left as they are
+            h = L.rms_norm(x, block.norm_x.scale, cfg.rms_eps)
+            h, _, _ = L.attn_decode(block.cross, cfg, h,
+                                    cross_kv[layer]["ck"],
+                                    cross_kv[layer]["cv"], 1 << 30,
+                                    use_rope=False, update_cache=False)
+            x = x + h.to(x.dtype)
+        x, _ = _ffn_apply(block, cfg, x)
     x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
     return x @ unembed(model, cfg), cache

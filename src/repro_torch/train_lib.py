@@ -22,7 +22,10 @@ __all__ = ["make_prefill_step", "make_decode_step"]
 
 def make_prefill_step(cfg: ModelConfig):
     """Inference prefill: ``(model, batch) -> logits`` for a full prompt
-    batch (``batch["tokens"]``: (B, S) integer)."""
+    batch (``batch["tokens"]``: (B, S) integer; ``batch["frontend"]``,
+    where given: an enc-dec model's stub frame embeddings or a vlm's stub
+    patch embeddings, passed to :func:`~repro_torch.models.transformer.
+    forward` as ``frontend_embeds``)."""
 
     @torch.inference_mode()
     def prefill_step(model, batch):
@@ -34,8 +37,9 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def make_decode_step(cfg: ModelConfig, kv_seq_axis: Optional[str] = None):
-    """One-token greedy decode: ``(model, cache, token, pos) ->
-    (next_token (B, 1) int32, cache)``."""
+    """One-token greedy decode: ``(model, cache, token, pos[, cross_kv])
+    -> (next_token (B, 1) int32, cache)``; ``cross_kv`` from
+    :func:`~repro_torch.models.transformer.encode_cross_kv` (enc-dec)."""
 
     @torch.inference_mode()
     def decode_step(model, cache, token, pos, cross_kv=None):

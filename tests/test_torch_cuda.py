@@ -1019,7 +1019,8 @@ def test_cuda_sweep_measures_on_card_then_hits(cuda_device, tmp_path):
 
 
 @pytest.mark.parametrize("T,E", [(1, 128), (32, 128), (4096, 128),
-                                 (32768, 128), (1 << 16, 128), (1 << 16, 8)])
+                                 (32768, 128), (1 << 16, 128), (1 << 16, 8),
+                                 (4, 16), (8, 16), (128, 16), (8192, 16)])
 @pytest.mark.parametrize("dist", ["uniform", "zipf", "one_expert"])
 def test_moe_dispatch_matches_plain_version(rng, cuda_device, T, E, dist):
     """perm, rank and counts bit for bit against the argsort dispatch,
@@ -1066,3 +1067,50 @@ def test_moe_apply_on_card_sorts_only_on_k1_k2(cuda_device, monkeypatch):
     assert counts["fractal_histogram"] == 1
     assert counts["fractal_rank_kernel"] == 1
     assert torch.equal(out, want[0]) and torch.equal(aux, want[1])
+
+
+@pytest.mark.parametrize("Sq", [1500, 448])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_whisper_shapes(rng, cuda_device, Sq,
+                                                  dtype):
+    """whisper-small's encoder over its 1500 audio frames (no tile divides
+    1500) and its decoder's 448 text positions attending to them, both
+    without a mask: f32 1e-4 (1500-term sums in another order), bf16
+    2e-2."""
+    B, H, hd, Skv = 2, 12, 64, 1500
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, Sq, H, hd), (B, Skv, H, hd), (B, Skv, H, hd)))
+    got = flash_attention_kernel(q, k, v, causal=False)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(
+        q, k, v, causal=False).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mixer", ["mamba_apply", "mlstm_apply_chunked",
+                                   "slstm_apply"])
+def test_recurrent_mixers_on_card_match_cpu(rng, cuda_device, monkeypatch,
+                                            mixer):
+    """The mamba, chunked mLSTM and sLSTM prefills (plain torch ops, no
+    kernel of the repo) on the card against the same functions on the
+    CPU, smoke sizes, S = 37 (a ragged last chunk), fp32 within 2e-4."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models import xlstm as X
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    arch = "jamba-v0.1-52b" if mixer == "mamba_apply" else "xlstm-125m"
+    cfg = smoke_config(get_config(arch))
+    module, fn = {
+        "mamba_apply": (S.Mamba, S.mamba_apply),
+        "mlstm_apply_chunked": (X.MLSTM, lambda p, c, x: X.mlstm_apply_chunked(
+            p, c, x, 16)),
+        "slstm_apply": (X.SLSTM, X.slstm_apply)}[mixer]
+    on_cpu = module(cfg, torch.float32, "cpu")
+    on_cpu.init_params(torch.Generator().manual_seed(0))
+    on_card = module(cfg, torch.float32, cuda_device)
+    on_card.load_state_dict(on_cpu.state_dict())
+    x = torch.from_numpy((rng.standard_normal((2, 37, cfg.d_model)) * 0.5)
+                         .astype(np.float32))
+    want = fn(on_cpu, cfg, x)
+    got = fn(on_card, cfg, x.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

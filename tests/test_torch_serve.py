@@ -100,21 +100,39 @@ def test_scheduler_order_matches_reference(lengths, take):
     assert sched.take(take) == []
 
 
-def test_serve_matches_reference_loop(capsys):
-    cfg = smoke_config(get_config("llama3.2-1b"))
-    jcfg = jsmoke_config(jget_config("llama3.2-1b"))
-    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
+def _serve_both(arch, num_requests, batch_slots, seed=0):
+    """The port's serve() and the reference's loop on the smoke config of
+    ``arch``, one weight set, the same requests."""
+    cfg = smoke_config(get_config(arch))
+    jcfg = jsmoke_config(jget_config(arch))
+    jparams = JT.init_params(jax.random.PRNGKey(seed), jcfg)
     model = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                             device="cpu")
-    requests = S.make_requests(6, cfg.vocab, np.random.default_rng(0))
+    requests = S.make_requests(num_requests, cfg.vocab,
+                               np.random.default_rng(seed))
     jrequests = [jserve.Request(r.rid, r.prompt, r.max_new)
                  for r in copy.deepcopy(requests)]
-    got = S.serve(model, requests, batch_slots=3, max_len=96)
-    want = _reference_serve(jparams, jcfg, jrequests, 3, 96)
+    got = S.serve(model, requests, batch_slots=batch_slots, max_len=96)
+    want = _reference_serve(jparams, jcfg, jrequests, batch_slots, 96)
     assert [r.rid for r in got] == [r.rid for r in want]
     for r, w in zip(got, want):
         assert len(r.out) == r.max_new, r
         assert r.out == w.out, r.rid
+    return got
+
+
+def test_serve_matches_reference_loop(capsys):
+    _serve_both("llama3.2-1b", 6, 3)
     printed = capsys.readouterr().out.splitlines()
     assert sum(line.startswith("[serve] rid=") for line in printed) == 6
     assert printed[-1].startswith("[serve] 6/6 requests")
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_serve_recurrent_families_match_reference_loop(arch, capsys):
+    """Mamba and xLSTM states through the loop, token for token with the
+    reference, whose faults the port keeps: one decode position for every
+    slot, and a refilled slot inherits its predecessor's recurrent state."""
+    _serve_both(arch, 6, 3, seed=1)
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "[serve] 6/6 requests")
