@@ -7,14 +7,16 @@ tables, the out-of-core stream (external sort and streaming queries
 of host data under a device byte budget), the distributed sort and the
 device store on a one-rank NCCL group, the plan autotuner and the
 paper's baseline sorts, the MoE path (qwen3-moe-30b-a3b serving, its
-token dispatch on the fractal kernels), and the remaining model families
+token dispatch on the fractal kernels), the remaining model families
 (jamba's mamba + attention + MoE hybrid, xlstm's mLSTM and sLSTM,
 whisper's encoder-decoder, internvl2's patch prefix, and every config at
-smoke size).
+smoke size), and the train path (AdamW, the chunked loss, remat,
+checkpoints, the restart runtime and the training driver).
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
                           [--query-log2n 26] [--stream-log2n 24]
-                          [--moe-layers 48] [--hybrid-layers 16] [--profile]
+                          [--moe-layers 48] [--hybrid-layers 16]
+                          [--train-moe-layers 2] [--profile]
 
 Phases, each fatal on failure:
 
@@ -279,14 +281,50 @@ then, with the MoE model freed:
    gives finite (2, 2048, V) logits, its ms beside its bound; f. every
    registered config at smoke size, K5 on: one prefill and one decode
    step, finite.  Each model's peak memory is logged.  The launches of
-   19a-e form the kernel table's "families" column.
+   19a-e form the kernel table's "families" column;
+
+then, with the family models freed and the peak memory statistics reset:
+
+20. the train path on the card, data and weights from ``(--seed, 20)``,
+   TF32 off.  a. llama3.2-1b at full width and depth in fp32 (1.24 B
+   parameters, 19.8 GB with gradients and both moments): 6
+   ``make_train_step`` steps of ``SyntheticLM`` batches of 8 x 1024
+   tokens through the ``Prefetcher``, remat on, fatal unless every loss
+   and grad norm is finite and step 0's loss is within 1.0 of ln(vocab);
+   each step's ms, tokens/s, the model-FLOPs share (6 N a token over the
+   step time at the fp32 peak outside the tensor cores) and the peak
+   memory; b. one train step of the llama3.2-1b, qwen3-moe-30b-a3b and
+   xlstm-125m smoke configs on the card against the same step on the CPU
+   from the same weights and batch, no warmup (lr 3e-4): loss and the
+   clipped gradients (``mu / (1 - b1)``) within rtol 1e-4 + atol 1e-5,
+   every parameter moved, and the updated parameters within the same
+   tolerance but the elements whose gradient lies in (0, 10 eps) (at
+   most 1 %; held within 2 lr, as the step divides them by about eps;
+   phase 18a holds the MoE's (128, 8) dispatch); the card's state through
+   ``checkpoint.save``, restored on the CPU and back onto the card,
+   bit-exact; K5 refuses
+   inputs that require grad; c. qwen3-moe-30b-a3b at full width,
+   ``--train-moe-layers`` (2) layers, fp32 (1.87 B parameters): 3 train
+   steps of 2 x 1024 tokens through ``moe_apply`` on the fractal
+   dispatch, fatal unless losses and aux losses are finite and K1 and K2
+   launched; d. ``length_bucketed_order`` of 2**24 lengths in [0, 2**17)
+   bit-exact against a stable ``torch.argsort`` of the clipped keys, K1
+   and K2 launched, timed beside that argsort; e. ``python -m
+   repro_torch.launch.train`` (llama3.2-1b smoke, 25 steps, a checkpoint
+   every 10, a failure induced at step 15) on the card in a temporary
+   directory: its journal replays step 12 twice and ends at step 24; f.
+   ``make_compressed_ddp_step`` on a one-rank NCCL group: every reduced
+   gradient equals its int8 dequantization computed with plain torch ops,
+   and the step's loss is finite.  The launches of 20a-d form the kernel
+   table's "train" column.  No checkpoint of the full-width state is
+   written (about 20 GB of disk).
 
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
-11, 13-19).
+11, 13-20).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -2161,11 +2199,12 @@ MOE_LAYER_TOKENS = 4096
 # shapes (benchmarks/bench_moe_dispatch.py:18), which are also timed, and
 # phase 19's jamba shapes at E = 16, top-2: 19a's decode (B = 2) and
 # prefill (2 x 32 tokens), 19b's serve step (4 slots) and prefill (2 x
-# 2048 tokens)
+# 2048 tokens), and 20b's smoke qwen3-moe train step (2 x 32 tokens,
+# top-2 of 8 experts)
 MOE_DISPATCH_SHAPES = ((1, 128), (32, 128), (64, 128), (4096, 128),
                        (32768, 128), (1 << 14, 128), (1 << 16, 128),
                        (1 << 16, 8), (4, 16), (8, 16), (128, 16),
-                       (8192, 16))
+                       (8192, 16), (128, 8))
 MOE_BENCH_SHAPES = ((1 << 14, 128), (1 << 16, 128), (1 << 16, 8))
 MOE_CHECK_SEQ = 32  # decode against prefill: B = 2 prompts of 32 tokens
 
@@ -2900,6 +2939,373 @@ def families_phases(args, dev, card: str, path_counts: dict) -> list:
     return e2e
 
 
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6  # 20a: 8,192 tokens a step
+TRAIN_MOE_LAYERS = 2  # of qwen3-moe's 48 in 20c: 1.87 B parameters
+TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 2, 3
+TRAIN_SMOKE_ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "xlstm-125m")
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # 20b: the card against the CPU
+LENGTHS_LOG2N = 24  # 20d
+
+
+def step_agrees(arch: str, cpu, card, oc, lr: float) -> tuple:
+    """20b's gate on one AdamW step from the same weights and batch, given
+    each side's ``(model, weights before, opt state)``: the card's clipped
+    gradients (``mu / (1 - b1)``) within (TRAIN_RTOL, TRAIN_ATOL) of the
+    CPU's; every parameter moved by more than lr / 2 somewhere; the
+    updated parameters within the same tolerance, except where a side's
+    gradient lies in (0, 10 eps): there the step divides it by about eps,
+    so fp32 noise moves the parameter by a good part of lr, and those
+    elements (at most 1 % of all) are held within 2 lr.  Returns (worst
+    gradient excess, worst parameter excess, elements held within 2 lr,
+    elements)."""
+    (m_cpu, before, o_cpu), (m_card, _, o_card) = cpu, card
+    worst_g = worst_p = 0.0
+    n_loose = n_all = 0
+    for (name, p), q in zip(m_cpu.named_parameters(), m_card.parameters()):
+        g, h = (o["mu"][name].detach().cpu() / (1 - oc.b1)
+                for o in (o_cpu, o_card))
+        excess = ((h - g).abs() - TRAIN_RTOL * g.abs()).max().item()
+        worst_g = max(worst_g, excess)
+        if excess > TRAIN_ATOL:
+            raise AssertionError(f"20b {arch}: the gradient of {name} on "
+                                 f"the card differs from the CPU's by "
+                                 f"{excess} past rtol {TRAIN_RTOL}")
+        p, q = p.detach(), q.detach().cpu()
+        if not (q - before[name]).abs().max().item() > lr / 2:
+            raise AssertionError(f"20b {arch}: {name} did not move on the "
+                                 f"card (lr {lr})")
+        loose = ((torch.minimum(g.abs(), h.abs()) < 10 * oc.eps)
+                 & ((g != 0) | (h != 0)))
+        diff = (q - p).abs()
+        excess = torch.where(loose, 0, diff - TRAIN_RTOL * p.abs()).max()
+        worst_p = max(worst_p, excess.item())
+        if excess.item() > TRAIN_ATOL or torch.where(
+                loose, diff, 0).max().item() > 2 * lr + TRAIN_ATOL:
+            raise AssertionError(f"20b {arch}: {name} after one step "
+                                 f"differs from the CPU's by "
+                                 f"{excess.item()} past "
+                                 f"rtol {TRAIN_RTOL}")
+        n_loose += int(loose.sum())
+        n_all += p.numel()
+    if n_loose > n_all // 100:
+        raise AssertionError(f"20b {arch}: {n_loose} of {n_all} gradients "
+                             f"within 10 eps of 0")
+    return worst_g, worst_p, n_loose, n_all
+
+
+def train_phases(args, dev, card: str, path_counts: dict) -> list:
+    """Phase 20: the train path on the card.  Adds ``path_counts["train"]``
+    (20a-d's runs); returns e2e rows."""
+    import copy
+    import functools
+
+    from repro_torch import checkpoint as CK
+    from repro_torch import optim as O
+    from repro_torch import train_lib as TL
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import (DataConfig, Prefetcher, SyntheticLM,
+                                  length_bucketed_order, put_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = phase_rng(args.seed, 20)
+    e2e = []
+    k12 = ("fractal_histogram", "fractal_rank_kernel")
+    ops.reset_launch_counts()
+
+    def generator(device=dev) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(
+            int(rng.integers(1 << 62)))
+
+    def source(cfg, B: int, S: int) -> SyntheticLM:
+        return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                      global_batch=B,
+                                      seed=int(rng.integers(1 << 31))),
+                           device="cpu")
+
+    def peak() -> float:
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def trained(model, cfg, oc, data, steps: int, what: str) -> tuple:
+        """``steps`` train steps; fatal unless every loss, aux loss and
+        grad norm is finite.  Returns (losses, grad norms and ms a step;
+        a function that runs step ``s``)."""
+        state = {"opt": O.init_opt_state(model.named_parameters(), oc)}
+        step = TL.make_train_step(cfg, oc)
+
+        def one(s: int) -> dict:
+            state["opt"], met = step(model, state["opt"], data.get(s))
+            return met
+
+        out = {"loss": [], "aux_loss": [], "grad_norm": [], "ms": []}
+        for s in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = one(s)
+            vals = {k: float(met[k]) for k in ("loss", "aux_loss",
+                                               "grad_norm")}
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            for k, v in vals.items():
+                out[k].append(v)
+            if not all(math.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"20{what} step {s}: {vals}")
+        return out, one
+
+    def mfu(n_params: int, tokens: int, ms: float) -> float:
+        """Model FLOPs (6 N a token) over the step's time at the card's
+        fp32 peak outside the tensor cores (TF32 stays off)."""
+        return 6 * n_params * tokens / (ms / 1e3 * FP32_FMA_FLOPS)
+
+    # -- a. llama3.2-1b at full width and depth, fp32 -----------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    model = T.Transformer(cfg, device=dev).init_params(generator())
+    n_params = sum(p.numel() for p in model.parameters())
+    oc = O.OptimizerConfig(warmup_steps=10, total_steps=100)
+    data = Prefetcher(source(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                      functools.partial(put_batch, device=dev))
+    run, one = trained(model, cfg, oc, data, TRAIN_STEPS, "a")
+    if abs(run["loss"][0] - math.log(cfg.vocab)) > 1.0:
+        raise AssertionError(f"20a step 0 loss {run['loss'][0]:.4f}, not "
+                             f"within 1.0 of ln({cfg.vocab}) = "
+                             f"{math.log(cfg.vocab):.4f}")
+    warm = statistics.median(run["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = {"name": f"train {TRAIN_ARCH} fp32", "params": n_params,
+           "state_gb": 16 * n_params / 1e9, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat": cfg.remat, "step_ms": run["ms"],
+           "warm_step_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+           "mfu_6nd_fp32": mfu(n_params, tokens, warm),
+           "bound_6nd_ms": 6 * n_params * tokens / FP32_FMA_FLOPS * 1e3,
+           "loss": run["loss"], "grad_norm": run["grad_norm"],
+           "peak_gib": peak(), "card": card}
+    e2e.append(row)
+    log(f"[train] 20a {TRAIN_ARCH}: {n_params / 1e9:.3f} B fp32 parameters "
+        f"({row['state_gb']:.1f} GB with grads and moments), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat {cfg.remat}: losses "
+        f"{[round(v, 4) for v in run['loss']]} (step 0 vs ln V "
+        f"{math.log(cfg.vocab):.4f}), grad norms "
+        f"{[round(v, 4) for v in run['grad_norm']]}; ms a step "
+        f"{[round(v, 1) for v in run['ms']]}, warm median {warm:.1f} ms, "
+        f"{row['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+        f"{row['mfu_6nd_fp32']:.4f} of {FP32_FMA_FLOPS / 1e12:.0f} TFLOP/s "
+        f"fp32 (6ND bound {row['bound_6nd_ms']:.1f} ms); peak "
+        f"{row['peak_gib']:.2f} GiB; {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if args.profile:  # device time of one warm step by kernel
+        log(json.dumps({"profile_train_step": profile_call(
+            lambda: one(TRAIN_STEPS), top=25), "card": card}))
+    del model, data, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- b. the card against the CPU at smoke size ----------------------------
+    t0 = time.perf_counter()
+    # no warmup: the first step's lr is 3e-4, so each parameter moves by
+    # about that, far above the gate's atol
+    oc = O.OptimizerConfig(warmup_steps=0)
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = smoke_config(get_config(arch))
+        on_cpu = T.Transformer(cfg, device="cpu").init_params(
+            generator("cpu"))
+        before = {k: p.detach().clone() for k, p in on_cpu.named_parameters()}
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        batch = source(cfg, 2, 32).batch(0)
+        sides, losses = [], []
+        for model in (on_cpu, on_card):
+            opt = O.init_opt_state(model.named_parameters(), oc)
+            opt, met = TL.make_train_step(cfg, oc)(
+                model, opt, put_batch(batch, model.device))
+            sides.append((model, before, opt))
+            losses.append(float(met["loss"]))
+        lr = float(met["lr"])
+        l_cpu, l_card = losses
+        if abs(l_card - l_cpu) > TRAIN_ATOL + TRAIN_RTOL * abs(l_cpu):
+            raise AssertionError(f"20b {arch}: loss {l_card} on the card, "
+                                 f"{l_cpu} on the CPU")
+        worst_g, worst_p, n_loose, n_all = step_agrees(arch, *sides, oc, lr)
+        log(f"[train] 20b {cfg.name}: loss card {l_card:.6f} cpu "
+            f"{l_cpu:.6f}; clipped gradients within rtol {TRAIN_RTOL} + "
+            f"{worst_g:.3g}, updated parameters (lr {lr:.3g}) within rtol "
+            f"{TRAIN_RTOL} + {worst_p:.3g} (gate atol {TRAIN_ATOL}) but "
+            f"{n_loose} of {n_all} elements whose gradient is within 10 eps "
+            f"of 0 (held within 2 lr)")
+    # the checkpoint of the card's state restores on the CPU, and back
+    state = {"params": dict(on_card.named_parameters()), "opt": opt}
+    with tempfile.TemporaryDirectory() as ck:
+        CK.save(ck, 1, state)
+        host = CK.restore(ck, 1, state, device="cpu")
+        back = CK.restore(ck, 1, host, device=dev)
+    for (name, a), (_, h), (_, b) in zip(CK.flatten(state), CK.flatten(host),
+                                         CK.flatten(back)):
+        if h.device.type != "cpu" or b.device != a.device or not (
+                torch.equal(h, a.detach().cpu()) and torch.equal(b, a)):
+            raise AssertionError(f"20b checkpoint: {name} did not survive "
+                                 f"the card -> CPU -> card round trip")
+    # K5 refuses to run under grad on the card, as on the CPU
+    q = torch.zeros((1, 8, 2, 16), device=dev, requires_grad=True)
+    try:
+        flash_attention_kernel(q, q, q)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("20b: K5 ran on inputs that require grad")
+    log(f"[train] 20b checkpoint card -> CPU -> card bit-exact over "
+        f"{len(CK.flatten(state))} leaves; K5 refuses inputs that require "
+        f"grad ({time.perf_counter() - t0:.1f} s)")
+    del on_cpu, on_card, state, host, back, q
+
+    # -- c. qwen3-moe-30b-a3b at full width, 2 layers, fp32 ---------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=args.train_moe_layers)
+    model = T.Transformer(cfg, device=dev).init_params(generator())
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = active_params(model)
+    data = Prefetcher(source(cfg, TRAIN_MOE_BATCH, TRAIN_SEQ),
+                      functools.partial(put_batch, device=dev))
+    before = ops.launch_counts()
+    run, _ = trained(model, cfg, O.OptimizerConfig(warmup_steps=10,
+                                                   total_steps=100),
+                     data, TRAIN_MOE_STEPS, "c")
+    got = launch_delta(before, ops.launch_counts())
+    if min(got.get(k, 0) for k in k12) <= 0:
+        raise AssertionError(f"20c launched {got}: K1 and K2 must launch")
+    warm = statistics.median(run["ms"][1:])
+    tokens = TRAIN_MOE_BATCH * TRAIN_SEQ
+    row = {"name": f"train {MOE_ARCH} {cfg.n_layers} layers fp32",
+           "params": n_params, "active_params": n_active,
+           "state_gb": 16 * n_params / 1e9, "batch": TRAIN_MOE_BATCH,
+           "seq": TRAIN_SEQ, "step_ms": run["ms"], "warm_step_ms": warm,
+           "tokens_per_s": tokens / warm * 1e3,
+           "mfu_6nd_fp32_active": mfu(n_active, tokens, warm),
+           "loss": run["loss"], "aux_loss": run["aux_loss"],
+           "launches": got, "peak_gib": peak(), "card": card}
+    e2e.append(row)
+    log(f"[train] 20c {MOE_ARCH}, {cfg.n_layers} layers: "
+        f"{n_params / 1e9:.3f} B fp32 parameters ({n_active / 1e9:.3f} B "
+        f"active), batch {TRAIN_MOE_BATCH} x {TRAIN_SEQ}: losses "
+        f"{[round(v, 4) for v in run['loss']]}, aux "
+        f"{[round(v, 4) for v in run['aux_loss']]}; ms a step "
+        f"{[round(v, 1) for v in run['ms']]}, warm median {warm:.1f} ms, "
+        f"{row['tokens_per_s']:.0f} tokens/s, model-FLOPs share (active) "
+        f"{row['mfu_6nd_fp32_active']:.4f}; launches {json.dumps(got)}; "
+        f"peak {row['peak_gib']:.2f} GiB; {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- d. length-bucketed order of 2**24 lengths ----------------------------
+    t0 = time.perf_counter()
+    n = 1 << LENGTHS_LOG2N
+    lengths = torch.from_numpy(rng.integers(0, 1 << 17, n).astype(
+        np.int32)).to(dev)
+    before = ops.launch_counts()
+    perm = length_bucketed_order(lengths, device=dev)
+    torch.cuda.synchronize()
+    got = launch_delta(before, ops.launch_counts())
+    want = torch.argsort(torch.clamp(lengths, 0, (1 << 16) - 1), stable=True)
+    if not torch.equal(perm.long(), want):
+        raise AssertionError("20d: length_bucketed_order differs from the "
+                             "stable argsort of the clipped lengths")
+    if min(got.get(k, 0) for k in k12) <= 0:
+        raise AssertionError(f"20d launched {got}: K1 and K2 must launch")
+    train_counts = ops.launch_counts()
+    path_counts["train"] = train_counts
+    ms = cuda_ms(lambda: length_bucketed_order(lengths, device=dev))
+    argsort_ms = cuda_ms(lambda: torch.argsort(
+        torch.clamp(lengths, 0, (1 << 16) - 1), stable=True))
+    e2e.append({"name": "length_bucketed_order", "n": n, "ms": ms,
+                "torch_argsort_ms": argsort_ms, "launches": got})
+    log(f"[train] 20d length_bucketed_order of 2**{LENGTHS_LOG2N} lengths "
+        f"in [0, 2**17), clipped to 16 bits: bit-exact against a stable "
+        f"torch.argsort; launches {json.dumps(got)} (K4 "
+        f"{'ran' if got.get('fractal_reconstruct') else 'did not run'}: "
+        f"argsort carries the permutation through LSD passes only); "
+        f"{ms:.3f} ms, torch.argsort {argsort_ms:.3f} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del lengths, perm, want
+
+    # -- e. the training driver: induced failure, restart, journal -----------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_ARCH, "--smoke", "--steps", "25", "--global-batch", "4",
+             "--seq-len", "32", "--ckpt-dir", ck, "--ckpt-every", "10",
+             "--induce-failure", "15"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if res.returncode != 0:
+            raise AssertionError(f"20e: the training driver exited "
+                                 f"{res.returncode}:\n{res.stdout}\n"
+                                 f"{res.stderr[-4000:]}")
+        with open(os.path.join(ck, "journal.jsonl")) as f:
+            steps = [json.loads(line)["step"] for line in f]
+    for line in ("[train] step 15 failed: induced failure at step 15; "
+                 "restoring", "[train] restarted from step 10",
+                 "[train] done; straggler count:"):
+        if line not in res.stdout:
+            raise AssertionError(f"20e: no {line!r} in\n{res.stdout}")
+    if steps.count(12) != 2 or max(steps) != 24:
+        raise AssertionError(f"20e: journal steps {steps}")
+    log(f"[train] 20e python -m repro_torch.launch.train on the card: step "
+        f"12 replayed twice, journal ends at step 24 "
+        f"({time.perf_counter() - t0:.1f} s, the child's start included)")
+
+    # -- f. the int8-compressed DDP step on a one-rank NCCL group -------------
+    t0 = time.perf_counter()
+    cfg = smoke_config(get_config(TRAIN_ARCH))
+    model = T.Transformer(cfg, device=dev).init_params(generator())
+    batch = source(cfg, 2, 32).batch(0)
+    batch = put_batch(batch, dev)
+    oc = O.OptimizerConfig()
+    with one_rank_group(dev):
+        err = TL.init_error_feedback(model)
+        with TL.full_precision():
+            (_, (loss, _)), grads = TL.value_and_grad(model, cfg, batch)
+        for name, g in grads.items():
+            got, new_err = O.compressed_psum(g, None, err[name])
+            g32 = g.float() + err[name]
+            scale = torch.clamp(g32.abs().max(), min=1e-12) / 127.0
+            deq = torch.clamp(torch.round(g32 / scale), -127, 127).to(
+                torch.int8).float() * scale
+            if not (torch.equal(got, deq) and torch.equal(new_err,
+                                                          g32 - deq)):
+                raise AssertionError(f"20f: {name}'s reduced gradient is not "
+                                     f"its int8 dequantization")
+        opt = O.init_opt_state(model.named_parameters(), oc)
+        opt, err, met = TL.make_compressed_ddp_step(cfg, oc)(
+            model, opt, err, batch)
+        step_loss = float(met["loss"])
+    if not (math.isfinite(step_loss) and math.isfinite(
+            float(met["grad_norm"]))) or abs(step_loss - float(loss)) > (
+            TRAIN_ATOL + TRAIN_RTOL * abs(float(loss))):
+        raise AssertionError(f"20f: step loss {step_loss}, plain "
+                             f"{float(loss)}, metrics {met}")
+    log(f"[train] 20f make_compressed_ddp_step on a one-rank NCCL group: "
+        f"{len(grads)} reduced gradients equal their int8 dequantization; "
+        f"step loss {step_loss:.6f} ({time.perf_counter() - t0:.1f} s)")
+    del model, grads, opt, err
+
+    log(f"[launches] train path (20a-d): "
+        f"{json.dumps({k: c for k, c in train_counts.items() if c})}")
+    phase_peak = max([peak()] + [r["peak_gib"] for r in e2e
+                                 if "peak_gib" in r])
+    log(f"[train] phase 20 in {time.perf_counter() - t_phase:.1f} s, peak "
+        f"{phase_peak:.2f} GiB")
+    return e2e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2907,9 +3313,10 @@ def main() -> int:
                     help="main-path key count 2**log2n (default 27)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one p=32 sort, one call of K1, its "
-                         "sweep and K3, one prefill, one serve and each "
-                         "query with torch.profiler and print device time "
-                         "by kernel and op")
+                         "sweep and K3, one prefill, one serve, each "
+                         "query and one llama3.2-1b train step with "
+                         "torch.profiler and print device time by kernel "
+                         "and op")
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut llama3.2-1b to this many layers (default: "
                          "all 16)")
@@ -2920,6 +3327,9 @@ def main() -> int:
                     help="cut jamba-v0.1-52b to this many layers in phase "
                          "19b, a multiple of its period of 8 (default 16 "
                          "of 32: 52 GB of bf16 weights; 8 for a rehearsal)")
+    ap.add_argument("--train-moe-layers", type=int, default=TRAIN_MOE_LAYERS,
+                    help="qwen3-moe-30b-a3b's layers in phase 20c's train "
+                         "steps at full width (default 2)")
     ap.add_argument("--query-log2n", type=int, default=26,
                     help="about 2**N lineitem rows (2**(N-2) orders) in the "
                          "query phases (default 26; 20 for a rehearsal)")
@@ -3465,10 +3875,16 @@ def main() -> int:
     log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"before the families phase")
     e2e += families_phases(args, dev, card, path_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"before the train phase")
+    e2e += train_phases(args, dev, card, path_counts)
 
     # every kernel launched on a main path (sort, prefill, serve, query,
     # stream, distributed, device store, autotune / baselines, moe,
-    # families)
+    # families, train)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "

@@ -70,8 +70,9 @@ class ModelConfig:
     # reference; the CUDA kernel picks its own tile)
     attn_chunk_q: int = 1024
     attn_chunk_kv: int = 1024
-    # training-only knobs, kept so configs stay field-for-field equal to
-    # the reference's; the port has no train step yet
+    # training-only knobs: remat checkpoints each period of the stack
+    # under grad ("dots" remats as "nothing" in the port); mlstm_chunk is
+    # kept so configs stay field-for-field equal to the reference's
     remat: bool = True
     remat_policy: str = "nothing"
     mlstm_chunk: int = 64

@@ -7,6 +7,11 @@ heads, in float32 or bfloat16, and returns softmax attention in q's dtype
 a CPU tensor it computes the plain version
 (:func:`~repro_torch.kernels.ref.flash_attention_ref`); on a CUDA tensor it
 launches the kernel or raises.
+
+K5 has no backward, as the reference's has none: a call that autograd
+would have to differentiate (grad mode on and q, k or v requiring grad)
+raises on either device, so no path gets an attention output whose
+gradient is silently lost.
 """
 
 from __future__ import annotations
@@ -54,6 +59,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``block_q``/``block_kv`` are the reference's TPU tile sizes; they do
     not change the result, and the CUDA kernel tiles by its own choice."""
     del block_q, block_kv
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_kernel (K5) has no backward: it cannot run on "
+            "inputs that require grad; train with use_pallas_attention="
+            "False (the plain blockwise attention)")
     if q.device.type == "cpu":
         if k.device != q.device or v.device != q.device:
             raise ValueError(f"q is on the CPU, k on {k.device}, v on "

@@ -5,12 +5,14 @@ Weights live in small :class:`torch.nn.Module` containers (:class:`RMSNorm`,
 parameter names and its (d_in, d_out) layout, so ``x @ w`` is the same
 product.  The math is in plain functions over tensors that take such a
 module where the reference takes its parameter dict, with the reference's
-signatures.  Parameters carry no gradient: this slice serves and does not
-train.
+signatures.  Parameters are created with ``requires_grad=False``; the
+train step (:func:`repro_torch.train_lib.make_train_step`) makes a
+model's parameters trainable.
 
 Attention over a full sequence is blockwise over query and key chunks
 with a running max and denominator (:func:`flash_attention`), or the
-flash-attention kernel K5 when ``cfg.use_pallas_attention`` is set.  The
+flash-attention kernel K5 when ``cfg.use_pallas_attention`` is set (K5
+has no backward, so training takes the blockwise version).  The
 reference's ``fsdp_gather`` and ``constrain_batch`` are sharding hints
 that do nothing without a mesh; the port has no mesh, so they are dropped.
 """

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fractal_sort import resolve_device
@@ -234,11 +235,42 @@ def _block_apply(p: Block, cfg: ModelConfig, x, *, causal: bool,
     return _ffn_apply(p, cfg, x)
 
 
+def _run_stack(blocks, cfg: ModelConfig, x, period: int, *, causal: bool,
+               enc_out=None):
+    """The blocks over x, one period (``period`` blocks) at a time.
+    Returns (x, aux): aux summed over the layers in fp32.
+
+    With ``cfg.remat`` and grad mode on, each period runs under
+    :func:`torch.utils.checkpoint.checkpoint`: backward keeps only each
+    period's input and recomputes the rest, as the reference's
+    ``jax.checkpoint`` of its scanned period does.  The port has no
+    ``"dots"`` policy (saving the products' outputs), so
+    ``remat_policy="dots"`` remats as ``"nothing"`` does."""
+    def period_fn(x, aux, *period_blocks):
+        for block in period_blocks:
+            x, a = _block_apply(block, cfg, x, causal=causal,
+                                enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, len(blocks), period):
+        period_blocks = blocks[lo:lo + period]
+        if remat:
+            x, aux = checkpoint(period_fn, x, aux, *period_blocks,
+                                use_reentrant=False)
+        else:
+            x, aux = period_fn(x, aux, *period_blocks)
+    return x, aux
+
+
 def _encode(encoder: Encoder, cfg: ModelConfig, x):
     """The encoder over frame embeddings (B, S_enc, D) of its dtype.
     Returns its normed output."""
-    for block in encoder.blocks:
-        x, _ = _block_apply(block, cfg, x, causal=False)
+    x, _ = _run_stack(encoder.blocks, cfg, x, len(_ENCODER_PATTERN),
+                      causal=False)
     return L.rms_norm(x, encoder.final_norm.scale, cfg.rms_eps)
 
 
@@ -260,11 +292,8 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
     if cfg.frontend == "patch" and frontend_embeds is not None:
         prefix = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in model.blocks:
-        x, a = _block_apply(block, cfg, x, causal=True, enc_out=enc_out)
-        if a is not None:
-            aux = aux + a
+    x, aux = _run_stack(model.blocks, cfg, x, len(cfg.pattern), causal=True,
+                        enc_out=enc_out)
     x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
     if prefix:
         x = x[:, prefix:]

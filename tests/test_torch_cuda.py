@@ -1020,7 +1020,8 @@ def test_cuda_sweep_measures_on_card_then_hits(cuda_device, tmp_path):
 
 @pytest.mark.parametrize("T,E", [(1, 128), (32, 128), (4096, 128),
                                  (32768, 128), (1 << 16, 128), (1 << 16, 8),
-                                 (4, 16), (8, 16), (128, 16), (8192, 16)])
+                                 (4, 16), (8, 16), (128, 16), (8192, 16),
+                                 (128, 8)])
 @pytest.mark.parametrize("dist", ["uniform", "zipf", "one_expert"])
 def test_moe_dispatch_matches_plain_version(rng, cuda_device, T, E, dist):
     """perm, rank and counts bit for bit against the argsort dispatch,
@@ -1114,3 +1115,113 @@ def test_recurrent_mixers_on_card_match_cpu(rng, cuda_device, monkeypatch,
     want = fn(on_cpu, cfg, x)
     got = fn(on_card, cfg, x.to(cuda_device))
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-moe-30b-a3b",
+                                  "xlstm-125m"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One train step at smoke size from the same weights and batch, with
+    no warmup (lr 3e-4, so each parameter moves by about that): loss and
+    clipped gradients (``mu / (1 - b1)``) within rtol 1e-4 + atol 1e-5;
+    the updated parameters too, except where a side's gradient lies in
+    (0, 10 eps): the step divides it by about eps there, so those elements
+    (at most 1 %) are held within 2 lr.  The MoE config's dispatch
+    launches K1 and K2 (forward and the remat's recompute)."""
+    import copy
+
+    from repro_torch import optim as O
+    from repro_torch import train_lib as TL
+    from repro_torch.data import DataConfig, SyntheticLM, put_batch
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config(get_config(arch))
+    on_cpu = T.Transformer(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    before = {k: p.detach().clone() for k, p in on_cpu.named_parameters()}
+    on_card = copy.deepcopy(on_cpu).to(cuda_device)
+    batch = SyntheticLM(DataConfig(cfg.vocab, 32, 2), device="cpu").batch(0)
+    oc = O.OptimizerConfig(warmup_steps=0)
+    losses, opts = [], []
+    ops.reset_launch_counts()
+    for model in (on_cpu, on_card):
+        opt, m = TL.make_train_step(cfg, oc)(
+            model, O.init_opt_state(model.named_parameters(), oc),
+            put_batch(batch, model.device))
+        losses.append(float(m["loss"]))
+        opts.append(opt)
+    lr = float(m["lr"])
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4, abs=1e-5)
+    n_loose = n_all = 0
+    for (name, p), q in zip(on_cpu.named_parameters(), on_card.parameters()):
+        g, h = (o["mu"][name].cpu() / (1 - oc.b1) for o in opts)
+        torch.testing.assert_close(h, g, rtol=1e-4, atol=1e-5, msg=name)
+        p, q = p.detach(), q.detach().cpu()
+        assert (q - before[name]).abs().max() > lr / 2, name
+        loose = ((torch.minimum(g.abs(), h.abs()) < 10 * oc.eps)
+                 & ((g != 0) | (h != 0)))
+        torch.testing.assert_close(q[~loose], p[~loose], rtol=1e-4,
+                                   atol=1e-5, msg=name)
+        assert torch.where(loose, q - p, 0).abs().max() <= 2 * lr + 1e-5, \
+            name
+        n_loose += int(loose.sum())
+        n_all += p.numel()
+    assert n_loose <= n_all // 100, (n_loose, n_all)
+    if cfg.moe is not None:
+        got = ops.launch_counts()
+        assert got["fractal_histogram"] >= 2 * cfg.n_layers
+        assert got["fractal_rank_kernel"] >= 2 * cfg.n_layers
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda_device, tmp_path):
+    from repro_torch import checkpoint as CK
+
+    tree = {"w": torch.randn(5, 3, device=cuda_device),
+            "h": torch.randn(4, device=cuda_device).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device=cuda_device)}
+    CK.save(str(tmp_path), 1, tree)
+    host = CK.restore(str(tmp_path), 1, tree, device="cpu")
+    back = CK.restore(str(tmp_path), 1, host, device=cuda_device)
+    for k, t in tree.items():
+        assert host[k].device.type == "cpu" and back[k].device == t.device
+        assert torch.equal(host[k], t.cpu()) and torch.equal(back[k], t)
+    assert CK.restore(str(tmp_path), 1, tree)["w"].device == tree["w"].device
+
+
+def test_k5_refuses_inputs_that_require_grad_on_card(cuda_device):
+    q = torch.randn((1, 8, 2, 16), device=cuda_device)
+    k = q.clone().requires_grad_()
+    with torch.no_grad():
+        flash_attention_kernel(q, k, q)  # no grad asked: runs
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_kernel(q, k, q)
+
+
+def test_length_bucketed_order_on_card(rng, cuda_device):
+    from repro_torch.data import length_bucketed_order
+
+    lengths = torch.from_numpy(rng.integers(0, 1 << 17, 100_003).astype(
+        np.int32)).to(cuda_device)
+    ops.reset_launch_counts()
+    perm = length_bucketed_order(lengths, device=cuda_device)
+    got = ops.launch_counts()
+    assert got["fractal_histogram"] > 0 and got["fractal_rank_kernel"] > 0
+    want = torch.argsort(torch.clamp(lengths, 0, (1 << 16) - 1), stable=True)
+    assert torch.equal(perm.long(), want)
+
+
+def test_synthetic_batches_reach_the_card(cuda_device):
+    import functools
+
+    from repro_torch.data import (DataConfig, Prefetcher, SyntheticLM,
+                                  put_batch)
+
+    cfg = DataConfig(vocab=1000, seq_len=16, global_batch=4, seed=2)
+    host = SyntheticLM(cfg, device="cpu")
+    pf = Prefetcher(host, functools.partial(put_batch, device=cuda_device))
+    on_card = SyntheticLM(cfg, device=cuda_device)
+    for s in (0, 1, 3):
+        got = pf.get(s)
+        assert got["tokens"].device.type == "cuda"
+        assert got["tokens"].dtype == torch.int32
+        assert torch.equal(got["tokens"].cpu(), host.batch(s)["tokens"])
+        assert torch.equal(on_card.batch(s)["labels"], got["labels"])

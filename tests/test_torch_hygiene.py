@@ -25,7 +25,9 @@ def test_port_imports_load_no_jax_and_no_reference_module():
         "import repro_torch.models.transformer, repro_torch.models.convert\n"
         "import repro_torch.models.moe, repro_torch.kernels.moe_dispatch\n"
         "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.runtime\n"
         "import repro_torch.query, repro_torch.query.operators\n"
         "import repro_torch.core.dispatch, repro_torch.core.faults\n"
         "import repro_torch.stream, repro_torch.stream.table_ops\n"
