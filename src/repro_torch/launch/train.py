@@ -9,8 +9,20 @@ Wires together: config registry → model init → synthetic data pipeline
 straggler monitor → async checkpointing → auto-resume.
 ``--induce-failure N`` crashes step N once to exercise the restart path
 end to end.  ``--device`` defaults to the card and raises without one.
-The reference's host mesh (``--data-mesh``, ``--model-mesh``) is kept
-at 1 x 1: a larger mesh needs the LM's sharding, not ported yet.
+
+``--data-mesh D --model-mesh M`` above 1 x 1 runs SPMD, one process a
+rank, under ``torch.distributed.run`` (the process group comes from its
+environment; its world size must be D x M)::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --smoke \
+        --data-mesh 2 --model-mesh 2 --device cpu
+
+The model is stored by spec and stepped by ``train_lib.shard_train_step``.
+Checkpoints keep the port's format with full tensors: every leaf is
+gathered and rank 0 writes; a restore reads the full leaves and each
+rank keeps its shard.  Every rank fails and restores at the same step;
+rank 0 prints and keeps the journal.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as CK
 from repro_torch import optim as O
@@ -30,6 +43,7 @@ from repro_torch import train_lib as TL
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.fractal_sort import resolve_device
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM, put_batch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 
 
@@ -55,20 +69,36 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' to run here)")
     args = ap.parse_args(argv)
 
-    if args.data_mesh != 1 or args.model_mesh != 1:
-        raise NotImplementedError(
-            f"--data-mesh {args.data_mesh} --model-mesh {args.model_mesh}: "
-            f"a mesh needs the LM's sharding, not ported yet (ROADMAP queue "
-            f"1: the LM's sharding slice)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     device = resolve_device(args.device)
     oc = O.OptimizerConfig(lr=args.lr, warmup_steps=10,
                            total_steps=args.steps)
+    mesh, rank = None, 0
+    n_ranks = args.data_mesh * args.model_mesh
+    if n_ranks > 1:
+        world = int(os.environ.get("WORLD_SIZE", 0))  # torch.distributed.run's
+        if world != n_ranks:
+            raise ValueError(
+                f"--data-mesh {args.data_mesh} --model-mesh "
+                f"{args.model_mesh} runs {n_ranks} ranks under "
+                f"torch.distributed.run; the world size is {world or 'unset'}")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        mesh = make_host_mesh(args.data_mesh, args.model_mesh, device)
+        rank = dist.get_rank()
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
 
     model = T.Transformer(cfg, device=device).init_params(
         torch.Generator(device=device).manual_seed(args.seed))
+    if mesh is not None:
+        TL.shard_model(model, cfg, mesh)
     opt_state = O.init_opt_state(model.named_parameters(), oc)
 
     data = Prefetcher(
@@ -76,7 +106,8 @@ def main(argv=None):
                                global_batch=args.global_batch,
                                seed=args.seed), device="cpu"),
         functools.partial(put_batch, device=device))
-    step_fn = TL.make_train_step(cfg, oc)
+    step_fn = (TL.make_train_step(cfg, oc) if mesh is None
+               else TL.shard_train_step(cfg, oc, mesh))
 
     journal = RT.StepJournal(f"{args.ckpt_dir}/journal.jsonl")
     monitor = RT.StragglerMonitor()
@@ -84,22 +115,44 @@ def main(argv=None):
     state = {"opt": opt_state}
 
     def tree() -> dict:
-        return {"params": dict(model.named_parameters()), "opt": state["opt"]}
+        """The state to save: full tensors (gathered under a mesh)."""
+        if mesh is None:
+            return {"params": dict(model.named_parameters()),
+                    "opt": state["opt"]}
+        return TL.gather_state(model, state["opt"], mesh)
+
+    def latest_step():
+        """The newest checkpoint, once rank 0's writes are done."""
+        ckpt.wait()
+        if mesh is not None:
+            dist.barrier()
+        return CK.latest_step(args.ckpt_dir)
 
     @torch.no_grad()
     def load(step: int) -> None:
-        restored = CK.restore(args.ckpt_dir, step, tree())
-        for name, p in model.named_parameters():
-            p.copy_(restored["params"][name])
-        state["opt"] = restored["opt"]
+        if mesh is None:
+            restored = CK.restore(args.ckpt_dir, step, tree())
+            for name, p in model.named_parameters():
+                p.copy_(restored["params"][name])
+            state["opt"] = restored["opt"]
+            return
+        like = T.Transformer(cfg, device="meta", dtype=model.dtype)
+        full = dict(like.named_parameters())
+        moments = {n: torch.empty_like(t, dtype=state["opt"]["mu"][n].dtype)
+                   for n, t in full.items()}
+        restored = CK.restore(args.ckpt_dir, step, {
+            "params": full, "opt": {"mu": moments, "nu": moments,
+                                    "step": state["opt"]["step"]}},
+            device="cpu")
+        state["opt"] = TL.load_state(model, state["opt"], restored, mesh)
 
     # resume if a checkpoint exists
     start = 0
-    latest = CK.latest_step(args.ckpt_dir)
+    latest = latest_step()
     if latest is not None:
         load(latest)
         start = latest
-        print(f"[train] resumed from step {latest}")
+        say(f"[train] resumed from step {latest}")
 
     failed_once = {"done": False}
 
@@ -113,28 +166,34 @@ def main(argv=None):
         loss = float(metrics["loss"])  # waits for the step on the card
         dt = time.time() - t0
         straggler = monitor.observe(dt)
-        journal.append(step, loss=loss, step_time=dt, straggler=straggler)
+        if rank == 0:
+            journal.append(step, loss=loss, step_time=dt,
+                           straggler=straggler)
         if step % 10 == 0 or straggler:
             tag = " STRAGGLER" if straggler else ""
-            print(f"[train] step {step} loss {loss:.4f} ({dt:.2f}s){tag}")
+            say(f"[train] step {step} loss {loss:.4f} ({dt:.2f}s){tag}")
         if step > 0 and step % args.ckpt_every == 0:
-            ckpt.save_async(step, tree())
+            full = tree()  # a collective under a mesh: every rank gathers
+            if rank == 0:
+                ckpt.save_async(step, full)
+            del full
 
     def restore_latest() -> int:
-        ckpt.wait()
-        latest = CK.latest_step(args.ckpt_dir)
+        latest = latest_step()
         if latest is None:
             return 0
         load(latest)
-        print(f"[train] restarted from step {latest}")
+        say(f"[train] restarted from step {latest}")
         return latest
 
     RT.run_with_restarts(run_step, start, args.steps - start,
                          restore_latest, max_restarts=args.max_restarts,
-                         on_restart=lambda s, e: print(
+                         on_restart=lambda s, e: say(
                              f"[train] step {s} failed: {e}; restoring"))
     ckpt.wait()
-    print(f"[train] done; straggler count: {monitor.flagged}")
+    say(f"[train] done; straggler count: {monitor.flagged}")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ Attention over a full sequence is blockwise over query and key chunks
 with a running max and denominator (:func:`flash_attention`), or the
 flash-attention kernel K5 when ``cfg.use_pallas_attention`` is set (K5
 has no backward, so training takes the blockwise version).  The
-reference's ``fsdp_gather`` and ``constrain_batch`` are sharding hints
-that do nothing without a mesh; the port has no mesh, so they are dropped.
+reference's ``fsdp_gather`` sites stay (:func:`.act_sharding.fsdp_gather`,
+the identity: the sharded step gathers a block's weights whole).
+Decode over a sequence-sharded cache (``kv_seq_axis``) is split-KV: each
+rank attends over its slice, and the partial softmax terms combine over
+the axis's process group.
 """
 
 from __future__ import annotations
@@ -23,10 +26,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.act_sharding import fsdp_gather, get_mesh
 
 __all__ = ["RMSNorm", "Attention", "MLP", "dense_init", "rms_norm", "rope",
            "flash_attention", "attn_apply", "attn_decode", "mlp_apply",
@@ -183,9 +188,9 @@ def _qkv(p: Attention, cfg: ModelConfig, x, kv_x=None):
     B, S, _ = x.shape
     kv_x = x if kv_x is None else kv_x
     Skv = kv_x.shape[1]
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, hd)
-    k = (kv_x @ p.wk).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = (kv_x @ p.wv).reshape(B, Skv, cfg.n_kv_heads, hd)
+    q = (x @ fsdp_gather(p.wq, -1)).reshape(B, S, cfg.n_heads, hd)
+    k = (kv_x @ fsdp_gather(p.wk, -1)).reshape(B, Skv, cfg.n_kv_heads, hd)
+    v = (kv_x @ fsdp_gather(p.wv, -1)).reshape(B, Skv, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_scale, cfg.rms_eps)
         k = rms_norm(k, p.k_scale, cfg.rms_eps)
@@ -216,7 +221,7 @@ def attn_apply(p: Attention, cfg: ModelConfig, x, *, causal: bool = True,
         out = flash_attention(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                               causal=causal and kv_x is None,
                               chunk_q=chunk_q, chunk_kv=chunk_kv)
-    out = out.reshape(B, S, -1) @ p.wo
+    out = out.reshape(B, S, -1) @ fsdp_gather(p.wo, 0)
     return out, (k, v)
 
 
@@ -228,12 +233,17 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     ``pos``: int (or 0-d tensor) — the current position; the new K/V are
     written at ``pos`` clamped into the cache, as ``dynamic_update_slice``
     clamps.  The caches are updated in place (the reference returns new
-    arrays) and returned.  Sequence-sharded caches (``kv_seq_axis``) are
-    not ported yet."""
-    if kv_seq_axis is not None:
-        raise NotImplementedError(
-            "split-KV decode over a sequence-sharded cache is not ported "
-            "yet (ROADMAP queue 1, item 3: the LM's sharding)")
+    arrays) and returned.
+
+    ``kv_seq_axis``: the caches are this rank's slice of a cache split
+    over that axis of the mesh set in :mod:`.act_sharding` (rank ``i``
+    holding positions ``[i * S, (i + 1) * S)``), and attention runs as
+    split-KV: each rank attends over its slice, then the partial
+    ``(m, l, o)`` combine with one all-reduce MAX of ``m`` and one
+    all-reduce SUM each of ``l`` and ``o`` rescaled to it.  Only the
+    owning rank writes the new K/V, at ``pos`` less its slice's start
+    (the reference writes at the global ``pos`` clamped into every
+    rank's slice)."""
     pos = int(pos)
     hd = cfg.resolved_head_dim
     B = x.shape[0]
@@ -242,10 +252,19 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
         ppos = torch.full((B, 1), pos, device=x.device)
         q = rope(q, ppos, cfg.rope_theta)
         k_new = rope(k_new, ppos, cfg.rope_theta)
+    shard, idx, n_shards, group = cache_k.shape[1], 0, 1, None
+    if kv_seq_axis is not None:
+        if get_mesh() is None:
+            raise ValueError(f"kv_seq_axis={kv_seq_axis!r} needs a mesh "
+                             f"(act_sharding.set_batch_axes(..., mesh))")
+        group = get_mesh().get_group(kv_seq_axis)
+        idx, n_shards = dist.get_rank(group), dist.get_world_size(group)
+    pos_base = idx * shard
     if update_cache:
-        at = min(max(pos, 0), cache_k.shape[1] - 1)
-        cache_k[:, at:at + 1] = k_new.to(cache_k.dtype)
-        cache_v[:, at:at + 1] = v_new.to(cache_v.dtype)
+        at = min(max(pos, 0), n_shards * shard - 1) - pos_base
+        if 0 <= at < shard:
+            cache_k[:, at:at + 1] = k_new.to(cache_k.dtype)
+            cache_v[:, at:at + 1] = v_new.to(cache_v.dtype)
     groups = cfg.n_heads // cfg.n_kv_heads
     # grouped attention over the local cache, without repeating it
     Bq, Sq, H, _ = q.shape
@@ -253,7 +272,7 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     qg = q.reshape(Bq, Sq, kv, groups, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                      cache_k.float()) / math.sqrt(hd)
-    k_pos = torch.arange(cache_k.shape[1], device=x.device)
+    k_pos = pos_base + torch.arange(shard, device=x.device)
     s = s.masked_fill((k_pos > pos)[None, None, None, None, :], NEG_INF)
     m = s.amax(dim=-1)
     e = torch.exp(s - m[..., None])
@@ -261,6 +280,15 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     o = torch.einsum("bhgqk,bkhd->bhgqd", e, cache_v.float())
     l = l.reshape(Bq, H, Sq)
     o = o.reshape(Bq, H, Sq, hd)
+    if group is not None:
+        m = m.reshape(Bq, H, Sq)
+        g_m = m.clone()
+        dist.all_reduce(g_m, op=dist.ReduceOp.MAX, group=group)
+        corr = torch.exp(m - g_m)
+        l = l * corr
+        o = o * corr[..., None]
+        dist.all_reduce(l, group=group)
+        dist.all_reduce(o, group=group)
     out = o / torch.clamp(l[..., None], min=1e-30)
     out = out.transpose(1, 2).reshape(B, 1, -1).to(x.dtype) @ p.wo
     return out, cache_k, cache_v
@@ -292,13 +320,13 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, cfg: ModelConfig, x):
-    h = x @ p.wi
+    h = x @ fsdp_gather(p.wi, -1)
     if cfg.act == "relu2":  # nemotron squared-ReLU, non-gated
         h = torch.square(F.relu(h))
     elif cfg.act == "gelu_plain":  # whisper-style, non-gated
         h = F.gelu(h, approximate="tanh")
     elif cfg.act == "gelu":  # GeGLU (grok)
-        h = F.gelu(h, approximate="tanh") * (x @ p.wg)
+        h = F.gelu(h, approximate="tanh") * (x @ fsdp_gather(p.wg, -1))
     else:  # SwiGLU
-        h = F.silu(h) * (x @ p.wg)
-    return h @ p.wd
+        h = F.silu(h) * (x @ fsdp_gather(p.wg, -1))
+    return h @ fsdp_gather(p.wd, 0)

@@ -16,8 +16,13 @@ Block kinds: mixers ``attn``, ``mamba`` (:mod:`.ssm`), ``mlstm`` and
 ``slstm`` (:mod:`.xlstm`); ffns ``mlp``, ``moe`` (:mod:`.moe`, one rank)
 and ``none``.  An enc-dec config adds a bidirectional encoder stack and a
 cross-attention sublayer in every decoder block; a ``patch`` frontend
-(vlm) prepends stub patch embeddings.  The sequence-sharded decode cache
-(``kv_shards``) is not ported yet and raises.
+(vlm) prepends stub patch embeddings.  ``init_cache(kv_shards=)`` gives
+this rank's slice of a sequence-sharded decode cache (split-KV decode).
+
+Under the sharded train step the model's parameters are this rank's
+shards, and each block (and the embedding, the final norms, the head)
+is gathered whole where it runs (:func:`.act_sharding.gathered`): inside
+the remat checkpoint, so the recompute gathers again.
 """
 
 from __future__ import annotations
@@ -31,13 +36,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fractal_sort import resolve_device
+from repro_torch.models import act_sharding as AS
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Block", "Encoder", "Transformer", "forward", "forward_hidden",
-           "unembed", "init_cache", "encode_cross_kv", "decode_step"]
+           "unembed", "gathered_head", "init_cache", "encode_cross_kv",
+           "decode_step"]
 
 _ENCODER_PATTERN = (("attn", "mlp"),)
 
@@ -245,11 +252,14 @@ def _run_stack(blocks, cfg: ModelConfig, x, period: int, *, causal: bool,
     period's input and recomputes the rest, as the reference's
     ``jax.checkpoint`` of its scanned period does.  The port has no
     ``"dots"`` policy (saving the products' outputs), so
-    ``remat_policy="dots"`` remats as ``"nothing"`` does."""
+    ``remat_policy="dots"`` remats as ``"nothing"`` does.  A sharded
+    block is gathered whole while it runs (:func:`.act_sharding.
+    gathered`)."""
     def period_fn(x, aux, *period_blocks):
         for block in period_blocks:
-            x, a = _block_apply(block, cfg, x, causal=causal,
-                                enc_out=enc_out)
+            with AS.gathered(block):
+                x, a = _block_apply(block, cfg, x, causal=causal,
+                                    enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -271,11 +281,19 @@ def _encode(encoder: Encoder, cfg: ModelConfig, x):
     Returns its normed output."""
     x, _ = _run_stack(encoder.blocks, cfg, x, len(_ENCODER_PATTERN),
                       causal=False)
-    return L.rms_norm(x, encoder.final_norm.scale, cfg.rms_eps)
+    with AS.gathered(encoder.final_norm):
+        return L.rms_norm(x, encoder.final_norm.scale, cfg.rms_eps)
 
 
 def unembed(model: Transformer, cfg: ModelConfig):
     return model.embed.T if cfg.tie_embeddings else model.lm_head
+
+
+def gathered_head(model: Transformer, cfg: ModelConfig):
+    """A context inside which :func:`unembed` is whole (the sharded step
+    gathers it there; otherwise nothing happens)."""
+    return AS.gathered(model, ("embed",) if cfg.tie_embeddings
+                       else ("lm_head",))
 
 
 def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
@@ -283,7 +301,8 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
     """Final hidden states (pre-unembedding).  Returns (h (B,S,D), aux);
     aux is the MoE load-balancing loss summed over the layers in fp32,
     zero for models without MoE."""
-    x = model.embed[tokens]
+    with AS.gathered(model, ("embed",)):
+        x = model.embed[tokens]
     enc_out = None
     if cfg.encoder_layers and frontend_embeds is not None:
         enc_out = _encode(model.encoder, cfg,
@@ -294,7 +313,8 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     x, aux = _run_stack(model.blocks, cfg, x, len(cfg.pattern), causal=True,
                         enc_out=enc_out)
-    x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
+    with AS.gathered(model.final_norm):
+        x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
     if prefix:
         x = x[:, prefix:]
     return x, aux
@@ -311,7 +331,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens,
 
     Returns (logits (B, S, V), aux_loss)."""
     x, aux = forward_hidden(model, cfg, tokens, frontend_embeds)
-    return x @ unembed(model, cfg), aux
+    with gathered_head(model, cfg):
+        return x @ unembed(model, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -325,13 +346,20 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
     KV, hd) tensors for attention, ``{"mamba": ...}``, ``{"mlstm": ...}``
     or ``{"slstm": ...}`` zero recurrent states for the others.
     Cross-attention K/V are not part of it: :func:`encode_cross_kv` makes
-    them once a request.  ``device=None`` means ``"cuda"``."""
-    if kv_shards != 1:
-        raise NotImplementedError(
-            "sequence-sharded decode caches are not ported yet (ROADMAP "
-            "queue 1, item 3: the LM's sharding)")
+    them once a request.  ``device=None`` means ``"cuda"``.
+
+    ``kv_shards > 1``: this rank's slice of a cache whose sequence is
+    split ``kv_shards`` ways (split-KV decode, ``decode_step(...,
+    kv_seq_axis=)`` over an axis of that size): attention K/V of
+    ``max_len / kv_shards`` positions; the recurrent states are not
+    split.  The reference, one process, stacks every slice on a leading
+    ``kv_shards`` axis instead."""
+    if kv_shards < 1 or max_len % kv_shards:
+        raise ValueError(f"max_len {max_len} does not split into "
+                         f"{kv_shards} equal slices")
     device = resolve_device(device)
-    return [_MIXERS[mixer].init_cache(cfg, B, max_len, dtype, device)
+    return [_MIXERS[mixer].init_cache(cfg, B, max_len // kv_shards, dtype,
+                                      device)
             for _ in range(cfg.repeats) for mixer, _ in cfg.pattern]
 
 

@@ -78,23 +78,28 @@ def init_opt_state(params: dict, oc: OptimizerConfig) -> dict:
     }
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
+def clip_by_global_norm(grads: dict, max_norm: float, norm=None) -> tuple:
     """``(grads scaled so their global fp32 norm is at most max_norm, in
-    their own dtypes; the norm before clipping)``."""
-    g2 = sum(g.float().square().sum() for g in grads.values())
-    norm = torch.sqrt(g2)
+    their own dtypes; the norm before clipping)``.  ``norm``: the norm,
+    where the caller counts it (a sharded step's spans every rank's
+    shards); by default that of ``grads``."""
+    if norm is None:
+        norm = torch.sqrt(sum(g.float().square().sum()
+                              for g in grads.values()))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: (g * scale).to(g.dtype) for k, g in grads.items()}, norm
 
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: dict,
-                 oc: OptimizerConfig) -> tuple:
+                 oc: OptimizerConfig, norm=None) -> tuple:
     """One AdamW step.  Moments stored in ``oc.moment_dtype`` but updated
     in fp32 (store narrow, accumulate wide).  ``params`` and the moments
     are updated in place; returns ``(state, metrics)``: the state with
-    the new step, metrics ``{"lr", "grad_norm"}``."""
-    grads, gnorm = clip_by_global_norm(grads, oc.grad_clip)
+    the new step, metrics ``{"lr", "grad_norm"}``.  ``norm``: the
+    gradients' global norm for clipping, where the caller counts it
+    (:func:`clip_by_global_norm`)."""
+    grads, gnorm = clip_by_global_norm(grads, oc.grad_clip, norm)
     step = state["step"] + 1
     lr = cosine_lr(step, oc)
     b1, b2 = oc.b1, oc.b2

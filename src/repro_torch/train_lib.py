@@ -16,8 +16,11 @@ a config with ``use_pallas_attention`` is refused.
 
 :func:`make_compressed_ddp_step` is the data-parallel step whose gradient
 all-reduce is int8 (:func:`repro_torch.optim.compressed_psum`) over a
-``torch.distributed`` group.  :func:`shard_train_step` needs the LM's
-sharding, which is not ported yet.
+``torch.distributed`` group.  :func:`shard_train_step` is the train step
+on a (data, model) mesh, SPMD over its ranks: :func:`shard_model` stores
+each parameter by its spec (:mod:`repro_torch.sharding`), the model
+gathers each block whole where it runs, and :func:`gather_state` /
+:func:`load_state` move a sharded state to full tensors and back.
 """
 
 from __future__ import annotations
@@ -30,14 +33,16 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import optim as O
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import act_sharding as AS
 from repro_torch.models import transformer as T
 
 __all__ = ["AUX_WEIGHT", "LOSS_CHUNK", "chunked_ce", "loss_fn",
            "value_and_grad", "full_precision", "make_train_step",
            "make_prefill_step", "make_decode_step",
            "make_compressed_ddp_step", "init_error_feedback",
-           "shard_train_step"]
+           "shard_model", "gather_state", "load_state", "shard_train_step"]
 
 AUX_WEIGHT = 0.01  # load-balancing loss weight
 LOSS_CHUNK = 512   # sequence-chunked cross-entropy (bounds fp32 logits)
@@ -81,7 +86,8 @@ def loss_fn(model, cfg: ModelConfig, batch):
     ``AUX_WEIGHT`` times the MoE load-balancing loss."""
     hidden, aux = T.forward_hidden(model, cfg, batch["tokens"],
                                    frontend_embeds=batch.get("frontend"))
-    loss = chunked_ce(hidden, T.unembed(model, cfg), batch["labels"])
+    with T.gathered_head(model, cfg):
+        loss = chunked_ce(hidden, T.unembed(model, cfg), batch["labels"])
     return loss + AUX_WEIGHT * aux, (loss, aux)
 
 
@@ -209,10 +215,125 @@ def init_error_feedback(model) -> dict:
             for k, p in model.named_parameters()}
 
 
-def shard_train_step(*args, **kwargs):
-    """The reference's jit with explicit in/out shardings for a
-    production mesh: needs the LM's sharding (``sharding.py``), which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "shard_train_step needs the LM's sharding, not ported yet (ROADMAP "
-        "queue 1: the LM's sharding slice)")
+# ---------------------------------------------------------------------------
+# the sharded train step (SPMD over a (data, model) mesh)
+# ---------------------------------------------------------------------------
+
+
+def shard_model(model, cfg: ModelConfig, mesh) -> dict:
+    """Store ``model`` by its specs for :func:`shard_train_step`, in place:
+    each parameter becomes this rank's :func:`~repro_torch.sharding.
+    local_shard` under its spec (:func:`~repro_torch.sharding.
+    param_specs`, fitted to ``mesh``) and carries the spec as
+    ``shard_spec``.  Every rank passes the same full weights.  Returns
+    ``{name: spec}``."""
+    specs = SH.param_specs(model, cfg, mesh)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = SH.local_shard(p.data, specs[name], mesh)
+            p.shard_spec = specs[name]
+    return specs
+
+
+def gather_state(model, opt_state: dict, mesh) -> dict:
+    """``{"params", "opt"}`` of a sharded model and its optimizer state as
+    full tensors (the moments by their parameters' specs; a collective:
+    every rank calls it and gets them all)."""
+    specs = {name: p.shard_spec for name, p in model.named_parameters()}
+    return {
+        "params": {name: SH.gather_full(p, specs[name], mesh)
+                   for name, p in model.named_parameters()},
+        "opt": {"mu": {k: SH.gather_full(v, specs[k], mesh)
+                       for k, v in opt_state["mu"].items()},
+                "nu": {k: SH.gather_full(v, specs[k], mesh)
+                       for k, v in opt_state["nu"].items()},
+                "step": opt_state["step"]}}
+
+
+@torch.no_grad()
+def load_state(model, opt_state: dict, full: dict, mesh) -> dict:
+    """Copy this rank's shards of a full ``{"params", "opt"}`` state (as
+    :func:`gather_state` gives, or a checkpoint restores) into the sharded
+    ``model`` and ``opt_state``.  Returns the optimizer state."""
+    for name, p in model.named_parameters():
+        p.copy_(SH.local_shard(full["params"][name], p.shard_spec, mesh))
+        for m in ("mu", "nu"):
+            opt_state[m][name].copy_(SH.local_shard(
+                full["opt"][m][name], p.shard_spec, mesh))
+    opt_state["step"] = full["opt"]["step"].to(opt_state["step"].device)
+    return opt_state
+
+
+def _global_norm(grads: dict, specs: dict, mesh) -> torch.Tensor:
+    """The gradients' fp32 norm over unique elements: each shard's squared
+    sum all-reduced over the axes its spec names only (a leaf replicated
+    over an axis counts once, not once a rank)."""
+    sums = {}
+    for name, g in grads.items():
+        axes = tuple(sorted({a for ax in specs[name]
+                             for a in SH.entry_axes(ax)}))
+        s = g.float().square().sum()
+        sums[axes] = s if axes not in sums else sums[axes] + s
+    total = 0.0
+    for axes, s in sums.items():  # the same order on every rank
+        for a in axes:
+            dist.all_reduce(s, group=mesh.get_group(a))
+        total = total + s
+    return torch.sqrt(total)
+
+
+def shard_train_step(cfg: ModelConfig, oc: O.OptimizerConfig, mesh):
+    """The reference's ``jit`` with explicit in/out shardings over
+    ``mesh``, SPMD: every rank of ``mesh`` calls ``step(model, opt_state,
+    batch) -> (opt_state, metrics)``, the contract of
+    :func:`make_train_step`.
+
+    * ``model`` is stored by spec (:func:`shard_model`); ``opt_state`` is
+      :func:`repro_torch.optim.init_opt_state` over its parameters, so the
+      moments take the same specs and ``step`` is replicated.
+    * ``batch`` is the global batch, the same on every rank: each rank
+      takes its slice over the batch axes (which must divide it).
+    * The model gathers each block's weights whole where it runs, inside
+      its remat checkpoint, and the embedding, final norm and head where
+      they are used; the MoE branch gathers its expert weights and router
+      over `data` itself (:mod:`repro_torch.models.act_sharding`).
+    * Dense compute is replicated over `model`; the gathers' backward
+      reduces each gradient to this rank's shard, averaged over `data`
+      (each data rank's loss is the mean over its own shard).
+    * The clip norm counts unique elements; AdamW, elementwise, runs on
+      the shards.  ``loss`` and ``aux_loss`` are averaged over the batch
+      axes, ``grad_norm`` is the global norm.
+
+    K5 has no backward, so a config with ``use_pallas_attention`` is
+    refused, as :func:`make_train_step` refuses it."""
+    _refuse_k5(cfg)
+    axes = SH.batch_axes(mesh)
+    n_dp = SH.dp_size(mesh)
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        specs = {name: getattr(p, "shard_spec", None)
+                 for name, p in params.items()}
+        if any(spec is None for spec in specs.values()):
+            raise ValueError("shard_train_step takes a sharded model: call "
+                             "shard_model(model, cfg, mesh) first")
+        if batch["tokens"].shape[0] % n_dp:
+            raise ValueError(f"a batch of {batch['tokens'].shape[0]} does "
+                             f"not split over {n_dp} data ranks")
+        local = {k: SH.local_shard(v, spec, mesh) for (k, v), spec in zip(
+            batch.items(), SH.data_specs(mesh, batch).values())}
+        with AS.meshed(axes, mesh), full_precision():
+            (_, (loss, aux)), grads = value_and_grad(model, cfg, local)
+            norm = _global_norm(grads, specs, mesh)
+            opt_state, om = O.adamw_update(params, grads, opt_state, oc,
+                                           norm)
+        del grads
+        for t in (loss, aux):
+            for a in axes:
+                dist.all_reduce(t, op=dist.ReduceOp.AVG,
+                                group=mesh.get_group(a))
+        metrics = {"loss": loss, "aux_loss": aux,
+                   "total_loss": loss + AUX_WEIGHT * aux, **om}
+        return opt_state, metrics
+
+    return train_step

@@ -27,7 +27,9 @@ def test_port_imports_load_no_jax_and_no_reference_module():
         "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
-        "import repro_torch.runtime\n"
+        "import repro_torch.runtime, repro_torch.sharding\n"
+        "import repro_torch.launch.mesh, repro_torch.models.act_sharding\n"
+        "import repro_torch.pipeline\n"
         "import repro_torch.query, repro_torch.query.operators\n"
         "import repro_torch.core.dispatch, repro_torch.core.faults\n"
         "import repro_torch.stream, repro_torch.stream.table_ops\n"

@@ -27,7 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe import MoE
 
 TOL = 2e-4  # fp32 sums in another order through one layer of the stack
 VARIANTS = {"mha": {}, "gqa": {"n_heads": 4, "n_kv_heads": 2}}
@@ -155,26 +155,6 @@ def test_mlp_activations_match_reference(act):
         L.mlp_apply(mlp, cfg, torch.from_numpy(x)).numpy(),
         np.asarray(JL.mlp_apply(jp, jcfg, jnp.asarray(x))), rtol=TOL,
         atol=TOL)
-
-
-@pytest.mark.parametrize("path", ["init_cache", "attn_decode", "moe_apply"])
-def test_sharded_paths_raise(path):
-    """The LM's sharding is not ported: a sequence-sharded cache, split-KV
-    decode and the MoE mesh branch raise, naming their ROADMAP item."""
-    cfg, _, model, _ = _models("gqa")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        if path == "init_cache":
-            T.init_cache(cfg, 2, 8, torch.float32, device="cpu", kv_shards=2)
-        elif path == "attn_decode":
-            cache = T.init_cache(cfg, 2, 8, torch.float32, device="cpu")
-            L.attn_decode(model.blocks[0].mixer, cfg,
-                          torch.zeros(2, 1, cfg.d_model), cache[0]["k"],
-                          cache[0]["v"], 0, kv_seq_axis="seq")
-        else:
-            moe_cfg = dataclasses.replace(
-                cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff=32))
-            moe_apply(MoE(moe_cfg, torch.float32, "cpu"), moe_cfg,
-                      torch.zeros(1, 4, cfg.d_model), mesh=object())
 
 
 def test_moe_blocks_build():

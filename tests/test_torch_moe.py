@@ -40,6 +40,7 @@ from repro_torch import train_lib as TL
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as S
+from repro_torch.models import act_sharding as AS
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
@@ -254,11 +255,15 @@ def test_dropped_rows_gather_the_first_row_as_the_reference():
 
 
 def test_moe_apply_refuses_a_mesh():
+    """Under a mesh the expert-parallel branch needs the sharded layer
+    (its weights' specs); an unsharded one is refused (the branch itself:
+    tests/test_torch_sharded.py)."""
     cfg, jcfg = _cfgs()
     layer, _ = _layer(cfg, jcfg)
     x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        M.moe_apply(layer, cfg, x, mesh=object())
+    with AS.meshed(("data",), {"data": 1, "model": 1}):
+        with pytest.raises(ValueError, match="sharded model"):
+            M.moe_apply(layer, cfg, x)
 
 
 def test_moe_apply_on_the_plain_dispatch_is_the_same_layer():

@@ -349,8 +349,15 @@ def test_train_driver_resume_from_checkpoint(tmp_path):
     assert steps == list(range(12)) + [10, 11, 12, 13]
 
 
-def test_train_driver_refuses_a_mesh():
+def test_train_driver_refuses_a_mesh(monkeypatch):
+    """A mesh runs under torch.distributed.run, whose world size must be
+    data x model (the sharded driver itself: tests/test_torch_sharded.py)."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="sharding"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="the world size is unset"):
         main(["--smoke", "--data-mesh", "2", "--device", "cpu"])
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="runs 4 ranks"):
+        main(["--smoke", "--data-mesh", "2", "--model-mesh", "2",
+              "--device", "cpu"])

@@ -647,11 +647,6 @@ def test_chunked_ce_matches_reference(S_, chunk):
             lab), chunk)), float(loss), rel_tol=1e-7)
 
 
-def test_shard_train_step_waits_for_the_sharding_slice():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TL.shard_train_step(None, None, None, None, None, None)
-
-
 def test_value_and_grad_gives_zeros_where_the_loss_does_not_reach():
     """whisper without frames: no encoder or cross-attention runs, and
     their gradients are zeros, as jax.grad gives."""
