@@ -11,9 +11,11 @@ token dispatch on the fractal kernels), the remaining model families
 (jamba's mamba + attention + MoE hybrid, xlstm's mLSTM and sLSTM,
 whisper's encoder-decoder, internvl2's patch prefix, and every config at
 smoke size), the train path (AdamW, the chunked loss, remat,
-checkpoints, the restart runtime and the training driver), and the LM's
+checkpoints, the restart runtime and the training driver), the LM's
 sharding (the sharded train step, the MoE expert-parallel branch,
-split-KV decode and the GPipe stages) on a one-rank mesh.
+split-KV decode and the GPipe stages) on a one-rank mesh, and tensor
+parallelism over `model` (the split dense layers, one rank of a 4-way
+group on a fake process group, the dry-run of four production cells).
 
     python3 chip_smoke.py [--seed 0] [--log2n 27] [--lm-layers 16]
                           [--query-log2n 26] [--stream-log2n 24]
@@ -338,14 +340,30 @@ then, with the family models freed and the peak memory statistics reset:
    bf16 parameters on the 16 x 16 mesh, from ``param_specs`` (arithmetic,
    meta tensors).  Multi-rank runs need more than one card: they are the
    CPU tests' gloo groups.  The launches of 21a-b's sharded steps form the
-   kernel table's "sharding" column.
+   kernel table's "sharding" column.  The sharded step runs the
+   tensor-parallel dense layers of phase 22;
+22. tensor parallelism over `model`, data and weights from ``(--seed,
+   22)``: a. on a (1, 1) mesh of one NCCL rank, llama3.2-1b's prefill (2 x
+   2048, fp32, K5 on the local heads) through ``shard_prefill_step``,
+   qwen3-moe-30b-a3b at ``--train-moe-layers`` layers (its prefill and
+   one sharded train step, the dispatch on K1/K2) and llama's decode
+   through the split layers, split-KV over `model` (16 steps, B = 2),
+   each held to the unsharded step (1e-3; the train step by 21's gate),
+   fatal unless K5 launched once a layer and K1, K2 launched; b. rank 0
+   of a (1, 4) mesh on a fake process group over the card: llama's
+   prefill as one card of a 4-way group computes it, timed only (its
+   collectives move nothing), and K5 at that local shape (2, 2048, 8,
+   64) against its plain version (1e-4); c. the dry-run of four cells on
+   a fake 16 x 16 group (``repro_torch.launch.dryrun``, four child
+   processes on the host's CPU after a-b), their ``[dryrun]`` lines.
+   22a's launches form the kernel table's "tensor_parallel" column.
 
 Each phase draws its data from its own generator, seeded with
 ``(--seed, phase)``, so a check added to one phase changes no other
 phase's inputs.
 
 Every kernel, K1-K5, must have launched on a main path (phases 4, 8, 9,
-11, 13-21).
+11, 13-22).
 
 The last line of output is ``{"ok": true, "device": {...}}``.
 """
@@ -3344,6 +3362,98 @@ PIPE_M, PIPE_MB, PIPE_SEQ = 4, 2, 256  # 21d: microbatches of (2, 256, D)
 SHARD_STUB = {"data": 16, "model": 16}  # 21e: the production mesh's sizes
 
 
+def timed(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+def peak() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+def held_to_unsharded(cfg, B: int, S: int, steps: int, what: str, mesh,
+                      rng, dev, counts: dict) -> dict:
+    """One ``make_train_step`` step, kept on the host, then
+    ``shard_train_step`` from the same weights and batch, held to it by
+    ``step_agrees`` (20b's gate; the 1 % cap on the elements that use
+    its exception); ``steps - 1`` more sharded steps, timed.  The
+    sharded steps' launches are added to ``counts``."""
+    from repro_torch import optim as O
+    from repro_torch import train_lib as TL
+    from repro_torch.data import DataConfig, SyntheticLM, put_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    oc = O.OptimizerConfig(warmup_steps=0)  # lr 3e-4 from the first step
+    seed = int(rng.integers(1 << 62))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B,
+                                  seed=int(rng.integers(1 << 31))),
+                       device="cpu")
+    batches = [put_batch(data.batch(s), dev) for s in range(steps)]
+
+    def fresh():
+        return T.Transformer(cfg, device=dev).init_params(
+            torch.Generator(device=dev).manual_seed(seed))
+
+    torch.cuda.reset_peak_memory_stats()
+    model = fresh()
+    before = {k: p.detach().to("cpu", copy=True)
+              for k, p in model.named_parameters()}
+    opt = O.init_opt_state(model.named_parameters(), oc)
+    (opt, met), plain_ms = timed(lambda: TL.make_train_step(cfg, oc)(
+        model, opt, batches[0]))
+    ref = ({k: p.detach().cpu() for k, p in model.named_parameters()},
+           before, {"mu": {k: v.cpu() for k, v in opt["mu"].items()}})
+    plain = {"loss": float(met["loss"]), "ms": plain_ms,
+             "peak_gib": peak(), "lr": float(met["lr"])}
+    del model, opt, met
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = fresh()
+    TL.shard_model(model, cfg, mesh)
+    opt = O.init_opt_state(model.named_parameters(), oc)
+    step = TL.shard_train_step(cfg, oc, mesh)
+    ms, losses = [], []
+    ops.reset_launch_counts()  # the comparison between launches none
+    (opt, met), t = timed(lambda: step(model, opt, batches[0]))
+    ms.append(t)
+    losses.append(float(met["loss"]))
+    step_peak = peak()
+    if abs(losses[0] - plain["loss"]) > (TRAIN_ATOL + TRAIN_RTOL
+                                         * abs(plain["loss"])):
+        raise AssertionError(f"{what}: sharded loss {losses[0]}, "
+                             f"unsharded {plain['loss']}")
+    full = TL.gather_state(model, opt, mesh)
+    worst_g, worst_p, n_tiny, n_all, n_excepted = step_agrees(
+        what, ref, (full["params"], None, full["opt"]), oc, plain["lr"],
+        cap_tiny=False)
+    del full, ref, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    for s in range(1, steps):
+        (opt, met), t = timed(lambda: step(model, opt, batches[s]))
+        ms.append(t)
+        losses.append(float(met["loss"]))
+    got_counts = ops.launch_counts()
+    for k, c in got_counts.items():
+        counts[k] = counts.get(k, 0) + c
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+    del model, opt, met, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"plain": plain, "ms": ms, "losses": losses,
+            "peak_gib": max(step_peak, peak()),
+            "worst_grad_excess": worst_g, "worst_param_excess": worst_p,
+            "elements": n_all, "tiny_gradients": n_tiny,
+            "excepted": n_excepted,
+            "launches": {k: c for k, c in got_counts.items() if c}}
+
+
 def sharding_phases(args, dev, card: str, path_counts: dict,
                     train_row: dict = None) -> list:
     """Phase 21: the LM's sharding on a (1, 1) mesh over a one-rank NCCL
@@ -3351,12 +3461,8 @@ def sharding_phases(args, dev, card: str, path_counts: dict,
     21a-b); returns e2e rows.  ``train_row``: 20a's, logged beside 21a."""
     import functools
 
-    from repro_torch import optim as O
     from repro_torch import sharding as SH
-    from repro_torch import train_lib as TL
     from repro_torch.configs import get_config, list_configs
-    from repro_torch.data import DataConfig, SyntheticLM, put_batch
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import act_sharding as AS
     from repro_torch.models import layers as L
@@ -3369,91 +3475,6 @@ def sharding_phases(args, dev, card: str, path_counts: dict,
     e2e = []
     k12 = ("fractal_histogram", "fractal_rank_kernel")
     sharding = {}
-    oc = O.OptimizerConfig(warmup_steps=0)  # lr 3e-4 from the first step
-
-    def timed(fn) -> tuple:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    def peak() -> float:
-        return torch.cuda.max_memory_allocated() / 2**30
-
-    def held_to_unsharded(cfg, B: int, S: int, steps: int, what: str,
-                          mesh) -> dict:
-        """One ``make_train_step`` step, kept on the host, then
-        ``shard_train_step`` from the same weights and batch, held to it by
-        ``step_agrees`` (20b's gate; the 1 % cap on the elements that use
-        its exception); ``steps - 1`` more sharded steps, timed.  The
-        sharded steps' launches count on the sharding path."""
-        seed = int(rng.integers(1 << 62))
-        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
-                                      global_batch=B,
-                                      seed=int(rng.integers(1 << 31))),
-                           device="cpu")
-        batches = [put_batch(data.batch(s), dev) for s in range(steps)]
-
-        def fresh():
-            return T.Transformer(cfg, device=dev).init_params(
-                torch.Generator(device=dev).manual_seed(seed))
-
-        torch.cuda.reset_peak_memory_stats()
-        model = fresh()
-        before = {k: p.detach().to("cpu", copy=True)
-                  for k, p in model.named_parameters()}
-        opt = O.init_opt_state(model.named_parameters(), oc)
-        (opt, met), plain_ms = timed(lambda: TL.make_train_step(cfg, oc)(
-            model, opt, batches[0]))
-        ref = ({k: p.detach().cpu() for k, p in model.named_parameters()},
-               before, {"mu": {k: v.cpu() for k, v in opt["mu"].items()}})
-        plain = {"loss": float(met["loss"]), "ms": plain_ms,
-                 "peak_gib": peak(), "lr": float(met["lr"])}
-        del model, opt, met
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        torch.cuda.reset_peak_memory_stats()
-        model = fresh()
-        TL.shard_model(model, cfg, mesh)
-        opt = O.init_opt_state(model.named_parameters(), oc)
-        step = TL.shard_train_step(cfg, oc, mesh)
-        ms, losses = [], []
-        ops.reset_launch_counts()  # the comparison between launches none
-        (opt, met), t = timed(lambda: step(model, opt, batches[0]))
-        ms.append(t)
-        losses.append(float(met["loss"]))
-        step_peak = peak()
-        if abs(losses[0] - plain["loss"]) > (TRAIN_ATOL + TRAIN_RTOL
-                                             * abs(plain["loss"])):
-            raise AssertionError(f"{what}: sharded loss {losses[0]}, "
-                                 f"unsharded {plain['loss']}")
-        full = TL.gather_state(model, opt, mesh)
-        worst_g, worst_p, n_tiny, n_all, n_excepted = step_agrees(
-            what, ref, (full["params"], None, full["opt"]), oc, plain["lr"],
-            cap_tiny=False)
-        del full, ref, before
-        gc.collect()
-        torch.cuda.empty_cache()
-        for s in range(1, steps):
-            (opt, met), t = timed(lambda: step(model, opt, batches[s]))
-            ms.append(t)
-            losses.append(float(met["loss"]))
-        got_counts = ops.launch_counts()
-        for k, c in got_counts.items():
-            sharding[k] = sharding.get(k, 0) + c
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"{what}: losses {losses}")
-        del model, opt, met, step, batches
-        gc.collect()
-        torch.cuda.empty_cache()
-        return {"plain": plain, "ms": ms, "losses": losses,
-                "peak_gib": max(step_peak, peak()),
-                "worst_grad_excess": worst_g, "worst_param_excess": worst_p,
-                "elements": n_all, "tiny_gradients": n_tiny,
-                "excepted": n_excepted,
-                "launches": {k: c for k, c in got_counts.items() if c}}
 
     if dev.type == "cuda":  # the mesh's communicator takes this device
         torch.cuda.set_device(torch.cuda.current_device())
@@ -3466,7 +3487,7 @@ def sharding_phases(args, dev, card: str, path_counts: dict,
         t0 = time.perf_counter()
         cfg = get_config(TRAIN_ARCH)
         run = held_to_unsharded(cfg, TRAIN_BATCH, TRAIN_SEQ, SHARD_STEPS,
-                                "21a", mesh)
+                                "21a", mesh, rng, dev, sharding)
         tokens = TRAIN_BATCH * TRAIN_SEQ
         warm = statistics.median(run["ms"][1:])
         row = {"name": f"shard_train_step {TRAIN_ARCH} fp32 (1, 1) mesh",
@@ -3507,7 +3528,7 @@ def sharding_phases(args, dev, card: str, path_counts: dict,
         cfg = dataclasses.replace(get_config(MOE_ARCH),
                                   n_layers=args.train_moe_layers)
         run = held_to_unsharded(cfg, TRAIN_MOE_BATCH, TRAIN_SEQ, 1, "21b",
-                                mesh)
+                                mesh, rng, dev, sharding)
         if min(run["launches"].get(k, 0) for k in k12) <= 0:
             raise AssertionError(f"21b launched {run['launches']}: K1 and K2 "
                                  f"must launch in moe_apply's mesh branch")
@@ -3609,6 +3630,275 @@ def sharding_phases(args, dev, card: str, path_counts: dict,
     log(f"[launches] sharding path (21a-b's sharded steps): "
         f"{json.dumps({k: c for k, c in sharding.items() if c})}")
     log(f"[shard] phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return e2e
+
+
+TP_FAKE_MODEL = 4  # 22b: rank 0 of a 4-way tensor-parallel group
+TP_DRYRUN_CELLS = (("llama3.2-1b", "train_4k"),
+                   ("qwen3-moe-30b-a3b", "train_4k"),
+                   ("deepseek-67b", "decode_32k"),
+                   ("jamba-v0.1-52b", "long_500k"))  # 22c, on 16 x 16
+
+
+def tp_phases(args, dev, card: str, path_counts: dict) -> list:
+    """Phase 22: tensor parallelism over `model` in the dense layers.
+
+    22a, on a (1, 1) mesh of one NCCL rank: llama3.2-1b's prefill at full
+    width through K5 on the local heads, qwen3-moe-30b-a3b cut to
+    ``--train-moe-layers`` layers (its prefill and one sharded train step,
+    the dispatch on K1/K2) and llama's split-KV decode through the TP
+    layers, each held to the unsharded step (logits and decode within
+    1e-3, the train step by 21's gate); adds
+    ``path_counts["tensor_parallel"]``.  22b, rank 0 of a (1, 4) mesh on a
+    fake process group over the card: llama's prefill as one card of a
+    4-way group computes it (8 of 32 heads, 2 of 8 KV heads, F 2048 of
+    8192), timed only (the fake collectives leave partial sums and
+    unfilled gathers), and K5 at that local shape against its plain
+    version.  22c: the dry-run of ``TP_DRYRUN_CELLS`` on a fake 16 x 16
+    group, four child processes on the host's cores after 22a-b.
+    Returns e2e rows."""
+    from repro_torch import train_lib as TL
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import act_sharding as AS
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = phase_rng(args.seed, 22)
+    e2e, counts = [], {}
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    children = []
+    try:
+        B, S = PREFILL_BATCH, PREFILL_SEQ
+        llama = dataclasses.replace(get_config(TRAIN_ARCH),
+                                    use_pallas_attention=True)
+        if args.lm_layers:
+            llama = dataclasses.replace(llama, n_layers=args.lm_layers)
+        moe = dataclasses.replace(get_config(MOE_ARCH),
+                                  n_layers=args.train_moe_layers)
+
+        def counted(fn):
+            """``fn()`` with the launch counts zeroed before it and added
+            to the TP path's after it."""
+            ops.reset_launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            for k, c in ops.launch_counts().items():
+                counts[k] = counts.get(k, 0) + c
+            return out
+
+        def prefill_held(cfg, what: str, mesh) -> dict:
+            """The unsharded prefill, then ``shard_prefill_step`` of the
+            same weights stored by spec, held within 1e-3; both timed."""
+            t0 = time.perf_counter()
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (B, S))).to(dev)}
+            model = T.Transformer(cfg, device=dev).init_params(
+                torch.Generator(device=dev).manual_seed(
+                    int(rng.integers(1 << 62))))
+            plain = TL.make_prefill_step(cfg)
+            want = plain(model, batch)
+            plain_ms = cuda_ms(lambda: plain(model, batch), 1, 3)
+            TL.shard_model(model, cfg, mesh)
+            step = TL.shard_prefill_step(cfg, mesh)
+            before = dict(counts)
+            got = counted(lambda: step(model, batch))
+            launched = {k: c - before.get(k, 0) for k, c in counts.items()
+                        if c - before.get(k, 0)}
+            err = check_close(f"22a {what} TP prefill vs unsharded", got,
+                              want, 1e-3)
+            ms = cuda_ms(lambda: step(model, batch), 1, 3)
+            del model, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            row = {"name": f"TP prefill {what} (1, 1) mesh", "batch": B,
+                   "seq": S, "max_abs_err": err, "ms": ms,
+                   "unsharded_ms": plain_ms, "launches": launched,
+                   "card": card}
+            log(f"[tp] {row['name']}: logits within 1e-3 of the unsharded "
+                f"prefill (max |err| {err:.3e}); {ms:.2f} ms, unsharded "
+                f"{plain_ms:.2f} ms ({ms / plain_ms:.4f}); launches "
+                f"{json.dumps(launched)} ({time.perf_counter() - t0:.1f} s)")
+            return row
+
+        if dev.type == "cuda":
+            torch.cuda.set_device(torch.cuda.current_device())
+        with one_rank_group(dev):
+            mesh = make_host_mesh(1, 1, device=dev)
+            # -- a. the TP path on a (1, 1) mesh -----------------------------
+            row = prefill_held(llama, f"{TRAIN_ARCH} fp32 K5", mesh)
+            if row["launches"].get("flash_attention_kernel", 0) != \
+                    llama.n_layers:
+                raise AssertionError(f"22a launched {row['launches']}: K5 "
+                                     f"once a layer ({llama.n_layers})")
+            e2e.append(row)
+            row = prefill_held(moe, f"{MOE_ARCH} {moe.n_layers} layers "
+                               f"fp32", mesh)
+            e2e.append(row)
+            t0 = time.perf_counter()
+            run = held_to_unsharded(moe, TRAIN_MOE_BATCH, TRAIN_SEQ, 1,
+                                    "22a", mesh, rng, dev, counts)
+            e2e.append({"name": f"TP shard_train_step {MOE_ARCH} "
+                                f"{moe.n_layers} layers fp32 (1, 1) mesh",
+                        **{k: run[k] for k in ("losses", "ms", "launches",
+                                               "worst_grad_excess",
+                                               "worst_param_excess",
+                                               "excepted", "elements")},
+                        "unsharded_ms": run["plain"]["ms"], "card": card})
+            log(f"[tp] 22a {MOE_ARCH} {moe.n_layers} layers, one sharded "
+                f"train step through the TP layers and the MoE branch: loss "
+                f"{run['losses'][0]:.6f} (unsharded "
+                f"{run['plain']['loss']:.6f}); gradients within rtol "
+                f"{TRAIN_RTOL} + {run['worst_grad_excess']:.3g}, parameters "
+                f"within rtol {TRAIN_RTOL} + {run['worst_param_excess']:.3g} "
+                f"but {run['excepted']} of {run['elements']} elements (within "
+                f"2 lr); {run['ms'][0]:.1f} ms (unsharded "
+                f"{run['plain']['ms']:.1f}); launches "
+                f"{json.dumps(run['launches'])} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            for k in ("fractal_histogram", "fractal_rank_kernel"):
+                if counts.get(k, 0) <= 0:
+                    raise AssertionError(f"22a launched {counts}: {k} on "
+                                         f"the MoE TP path")
+
+            t0 = time.perf_counter()
+            cfg = get_config(TRAIN_ARCH)
+            model = T.Transformer(cfg, device=dev).init_params(
+                torch.Generator(device=dev).manual_seed(
+                    int(rng.integers(1 << 62))))
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (2, SHARD_DECODE_STEPS))).to(dev)
+            dense = T.init_cache(cfg, 2, SHARD_DECODE_LEN, torch.float32,
+                                 device=dev)
+            with torch.inference_mode():
+                want = [T.decode_step(model, cfg, dense,
+                                      tokens[:, p:p + 1], p)[0]
+                        for p in range(SHARD_DECODE_STEPS)]
+                dense_ms = cuda_ms(lambda: T.decode_step(
+                    model, cfg, dense, tokens[:, :1], SHARD_DECODE_STEPS),
+                    1, 5)
+            TL.shard_model(model, TL.serving_config(cfg, mesh), mesh)
+            cache = T.init_cache(cfg, 2, SHARD_DECODE_LEN, torch.float32,
+                                 device=dev, mesh=mesh)
+            worst = 0.0
+            with AS.meshed(("data",), mesh), torch.inference_mode():
+                for p in range(SHARD_DECODE_STEPS):
+                    got = counted(lambda: T.decode_step(
+                        model, cfg, cache, tokens[:, p:p + 1], p,
+                        kv_seq_axis="model")[0])
+                    worst = max(worst, check_close(
+                        f"22a TP split-KV decode at pos {p}", got, want[p],
+                        1e-3))
+                tp_ms = cuda_ms(lambda: T.decode_step(
+                    model, cfg, cache, tokens[:, :1], SHARD_DECODE_STEPS,
+                    kv_seq_axis="model"), 1, 5)
+            nxt, _ = TL.shard_decode_step(cfg, mesh)(
+                model, cache, tokens[:, :1], SHARD_DECODE_STEPS)
+            if nxt.shape != (2, 1):
+                raise AssertionError(f"22a shard_decode_step: {nxt.shape}")
+            e2e.append({"name": f"TP split-KV decode {TRAIN_ARCH} fp32",
+                        "steps": SHARD_DECODE_STEPS, "max_abs_err": worst,
+                        "ms": tp_ms, "dense_ms": dense_ms, "card": card})
+            log(f"[tp] 22a {TRAIN_ARCH} decode through the TP layers, "
+                f"split-KV over `model`: {SHARD_DECODE_STEPS} steps within "
+                f"1e-3 of the dense decode (max |err| {worst:.3e}); a step "
+                f"{tp_ms:.3f} ms, dense {dense_ms:.3f} ms "
+                f"({time.perf_counter() - t0:.1f} s)")
+            del model, dense, cache, want
+            gc.collect()
+            torch.cuda.empty_cache()
+        path_counts["tensor_parallel"] = counts
+
+        # -- b. one card of a 4-way TP group, on a fake group --------------
+        t0 = time.perf_counter()
+        m = TP_FAKE_MODEL
+        with D.fake_world(m):
+            mesh = make_host_mesh(1, m, device=dev)
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, llama.vocab, (B, S))).to(dev)}
+            model = T.Transformer(llama, device=dev).init_params(
+                torch.Generator(device=dev).manual_seed(
+                    int(rng.integers(1 << 62))))
+            TL.shard_model(model, llama, mesh)
+            step = TL.shard_prefill_step(llama, mesh)
+            ops.reset_launch_counts()
+            step(model, batch)
+            torch.cuda.synchronize()
+            fake = {k: c for k, c in ops.launch_counts().items() if c}
+            fake_ms = cuda_ms(lambda: step(model, batch), 1, 3)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        shape = (B, S, llama.n_heads // m, llama.resolved_head_dim)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev) for _ in range(3))
+        k5_err = check_close(f"22b K5 at the local shape {shape}",
+                             flash_attention_kernel(q, k, v, causal=True),
+                             ref.flash_attention_ref(q, k, v, causal=True),
+                             1e-4)
+        k5_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True))
+        del q, k, v
+        unsharded = e2e[0]["unsharded_ms"]
+        e2e.append({"name": f"TP prefill {TRAIN_ARCH} fp32, rank 0 of a "
+                            f"(1, {m}) fake group (timing only)",
+                    "ms": fake_ms, "unsharded_ms": unsharded,
+                    "k5_local_shape": list(shape), "k5_max_abs_err": k5_err,
+                    "k5_ms": k5_ms, "launches": fake, "card": card})
+        log(f"[tp] 22b {TRAIN_ARCH} fp32 prefill {B} x {S} as rank 0 of a "
+            f"(1, {m}) mesh computes it ({llama.n_heads // m} of "
+            f"{llama.n_heads} heads, {max(llama.n_kv_heads // m, 1)} of "
+            f"{llama.n_kv_heads} KV heads, F {llama.d_ff // m} of "
+            f"{llama.d_ff}): {fake_ms:.2f} ms against the unsharded "
+            f"{unsharded:.2f} ms ({fake_ms / unsharded:.4f}); TIMING ONLY: the "
+            f"fake group's collectives move nothing, so its sums are partial "
+            f"and its gathers unfilled; launches {json.dumps(fake)} (not "
+            f"counted on a path); K5 at {shape} within 1e-4 of its plain "
+            f"version (max |err| {k5_err:.3e}), {k5_ms:.3f} ms "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # -- c. the dry-run cells, one child process each -------------------
+        # (after a-b: four CPU-bound children would slow their host side)
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        children += [(arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out-dir", dry_dir], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)) for arch, shape in TP_DRYRUN_CELLS]
+        for arch, shape, child in children:
+            out, _ = child.communicate(timeout=600)
+            if child.returncode != 0:
+                raise AssertionError(f"22c dry-run {arch} x {shape} "
+                                     f"failed:\n{out[-3000:]}")
+            for line in out.splitlines():
+                if line.startswith("[dryrun] ") and " x " in line:
+                    log(f"[tp] 22c {line}")
+            with open(os.path.join(dry_dir, f"{arch}_{shape}_16x16.json")) as f:
+                res = json.load(f)
+            e2e.append({"name": f"dry-run {arch} {shape} 16x16",
+                        **{k: res[k] for k in (
+                            "trace_seconds", "flops_per_device",
+                            "bytes_read_per_device", "bytes_written_per_device",
+                            "memory")},
+                        "collectives": {k: v["count"] for k, v in res[
+                            "collectives"]["by_kind"].items()},
+                        "wire_bytes": res["collectives"]["total_wire_bytes"]})
+        log(f"[tp] 22c {len(children)} dry-run cells on the host's CPU "
+            f"(meta tensors, fake 16 x 16 group, one child process each) "
+            f"in {time.perf_counter() - t0:.1f} s")
+    finally:
+        for _, _, child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(dry_dir, True)
+    log(f"[launches] tensor-parallel path (22a): "
+        f"{json.dumps({k: c for k, c in counts.items() if c})}")
+    log(f"[tp] phase 22 in {time.perf_counter() - t_phase:.1f} s")
     return e2e
 
 
@@ -4193,10 +4483,13 @@ def main() -> int:
     log(f"[mem] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"before the sharding phase")
     e2e += sharding_phases(args, dev, card, path_counts, train_e2e[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e += tp_phases(args, dev, card, path_counts)
 
     # every kernel launched on a main path (sort, prefill, serve, query,
     # stream, distributed, device store, autotune / baselines, moe,
-    # families, train, sharding)
+    # families, train, sharding, tensor parallel)
     totals = {k: sum(c.get(k, 0) for c in path_counts.values())
               for k in ops.KERNELS}
     log(f"[launches] over the main paths: {json.dumps(totals)}; by path "

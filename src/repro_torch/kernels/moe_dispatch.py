@@ -13,7 +13,11 @@ One read of the expert ids for the histogram and one for the ranks, in
 place of a comparison sort of the ids
 (:func:`~repro_torch.kernels.ref.moe_dispatch_ref`, the plain version).
 On a CUDA tensor both kernels launch; on a CPU tensor their wrappers
-compute their plain versions.
+compute their plain versions.  :func:`moe_ranks` is the custom operator
+``repro_torch::moe_ranks``, whose registered fake gives the outputs'
+shapes alone: on the ``meta`` device (the dry-run's parameters and
+activations) the dispatcher routes it there, by device type, and no
+kernel is built or launched.
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ from repro_torch.kernels.fractal_rank import fractal_rank_kernel
 __all__ = ["moe_ranks", "moe_dispatch"]
 
 
+@torch.library.custom_op("repro_torch::moe_ranks", mutates_args=())
 def moe_ranks(expert_ids: torch.Tensor, num_experts: int,
-              block: int = 1024) -> tuple:
+              block: int = 1024) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
     """The part of :func:`moe_dispatch` that the MoE layer reads: int32
     ``(rank, counts, start)``, ``start`` (E,) being the experts' first
     slots (the exclusive sum of ``counts``, which K2 takes anyway)."""
@@ -37,6 +43,14 @@ def moe_ranks(expert_ids: torch.Tensor, num_experts: int,
     start = exclusive_cumsum(counts)
     rank = fractal_rank_kernel(ids, start, num_experts, block=block)
     return rank, counts, start
+
+
+@moe_ranks.register_fake
+def _moe_ranks_shapes(expert_ids, num_experts, block=1024):
+    """Ranks (T,) and counts, starts (E,), int32, with no values."""
+    return (expert_ids.new_empty(expert_ids.shape, dtype=torch.int32),
+            expert_ids.new_empty((num_experts,), dtype=torch.int32),
+            expert_ids.new_empty((num_experts,), dtype=torch.int32))
 
 
 def moe_dispatch(expert_ids: torch.Tensor, num_experts: int,

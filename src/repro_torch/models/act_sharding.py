@@ -15,17 +15,34 @@ same process-global pair, set by the step factories
 
 When unset (one rank, no mesh) everything here is the identity.
 
+The dense sublayers (attention, cross-attention, the MLP) run on this
+rank's `model` slice, as Megatron-LM splits them: their weights stay
+split over `model` (:func:`gathered` leaves the names a module's
+``tp_weights()`` gives; :func:`fsdp_gather` gathers them over the batch
+axes only), column-parallel products take their input through
+:func:`tp_copy` (Megatron's ``f``) and row-parallel ones give their
+output through :func:`tp_sum` (``g``).  Every other weight is gathered
+whole where it runs and its compute is replicated over `model`.
+
 The collectives are :class:`torch.autograd.Function`\\ s with explicit
-gradients, because compute is replicated over ``model`` and each data
-rank's loss is the mean over its own batch shard:
+gradients; each data rank's loss is the mean over its own batch shard:
 
 * a weight's all-gather over a batch axis (``data``) reduce-scatters its
-  gradient, averaged over the axis (:class:`_GatherAvg`); a weight
-  replicated over a batch axis averages its gradient there
+  gradient, averaged over the axis (:class:`_GatherScatter` with AVG); a
+  weight replicated over a batch axis averages its gradient there
   (:class:`_AvgGrad`);
-* a weight's all-gather over ``model`` keeps this rank's slice of the
-  gradient, with no reduction: every ``model`` rank computed the same
-  batch (:class:`_GatherSlice`).
+* a weight's all-gather over ``model`` for replicated compute keeps this
+  rank's slice of the gradient, with no reduction: every ``model`` rank
+  computed the same batch (:class:`_GatherSlice`);
+* inside a sublayer split over `model`, each rank computes its own part:
+  an activation all-gathered over `model` reduce-scatters its gradient,
+  summed (:class:`_GatherScatter` with SUM), and ``f`` sums the gradient
+  of the sublayer's input (:class:`_GradSum`), ``g`` sums the output
+  (:class:`_Sum`).
+
+Over a one-rank group neither the collective nor its Function runs
+(``x`` passes as it is), as the reference's program has no collective
+over an axis of size 1.
 """
 
 from __future__ import annotations
@@ -40,7 +57,8 @@ from repro_torch import sharding as SH
 
 __all__ = ["set_batch_axes", "meshed", "get_batch_axes", "get_mesh",
            "constrain_batch", "fsdp_gather", "gather_param", "gathered",
-           "sum_over", "grad_sum_over"]
+           "sum_over", "grad_sum_over", "tp_copy", "tp_sum",
+           "gather_model", "model_rank"]
 
 _BATCH_AXES: Optional[tuple] = None
 _MESH = None
@@ -82,31 +100,39 @@ def constrain_batch(x):
 
 
 def fsdp_gather(w, tp_dim: int):
-    """The reference's per-layer FSDP weight gather (a layout constraint
-    keeping ``w`` sharded over `model` on ``tp_dim``).  The identity here:
-    the sharded step gathers a block's weights whole before the block
-    runs (:func:`gathered`), so ``w`` is whole.  These call sites are
-    where a tensor-parallel split would keep ``w``'s `model` slice."""
-    del tp_dim
-    return w
+    """The reference's per-layer FSDP weight gather: ``w`` gathered over
+    the mesh's batch axes only, its `model` slice on ``tp_dim`` kept (-1:
+    a column-parallel weight, 0: a row-parallel one).  ``w`` as it is
+    where no mesh is set or ``w`` carries no ``shard_spec`` (it is whole:
+    unsharded, or gathered whole by :func:`gathered`)."""
+    spec = getattr(w, "shard_spec", None)
+    if _MESH is None or spec is None:
+        return w
+    if not SH.names_model(spec, tp_dim) and any(
+            SH.names_model(spec, d) for d in range(len(spec))):
+        raise ValueError(f"fsdp_gather: spec {spec} splits `model` off "
+                         f"dim {tp_dim}")
+    return gather_param(w, spec, tuple(a for a in SH.axis_sizes(_MESH)
+                                       if a != "model"))
 
 
 # --- differentiable collectives --------------------------------------------
 
 
-class _GatherAvg(torch.autograd.Function):
-    """All-gather along ``dim`` over a batch axis; backward: this rank's
-    block of the gradient averaged over the axis."""
+class _GatherScatter(torch.autograd.Function):
+    """All-gather along ``dim`` over the group; backward: this rank's
+    block of the gradient reduced over the group by ``op`` (AVG over a
+    batch axis, SUM over `model` inside a split sublayer)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, op):
+        ctx.dim, ctx.group, ctx.op = dim, group, op
         return SH.all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return (SH.reduce_scatter_dim(g, ctx.dim, ctx.group,
-                                      dist.ReduceOp.AVG), None, None)
+        return (SH.reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.op), None,
+                None, None)
 
 
 class _GatherSlice(torch.autograd.Function):
@@ -139,6 +165,14 @@ class _AvgGrad(torch.autograd.Function):
         return g, None
 
 
+def _summed(x: torch.Tensor, groups) -> torch.Tensor:
+    """A copy of ``x`` summed over the groups."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    for group in groups:
+        dist.all_reduce(x, group=group)
+    return x
+
+
 class _Sum(torch.autograd.Function):
     """All-reduce SUM over the groups; backward: the identity, or, with
     ``grad_sum``, the gradient summed over the groups too."""
@@ -146,18 +180,11 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups, grad_sum):
         ctx.groups, ctx.grad_sum = groups, grad_sum
-        x = x.clone(memory_format=torch.contiguous_format)
-        for group in groups:
-            dist.all_reduce(x, group=group)
-        return x
+        return _summed(x, groups)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.grad_sum:
-            g = g.clone(memory_format=torch.contiguous_format)
-            for group in ctx.groups:
-                dist.all_reduce(g, group=group)
-        return g, None, None
+        return _summed(g, ctx.groups) if ctx.grad_sum else g, None, None
 
 
 class _GradSum(torch.autograd.Function):
@@ -170,14 +197,19 @@ class _GradSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        for group in ctx.groups:
-            dist.all_reduce(g, group=group)
-        return g, None
+        return _summed(g, ctx.groups), None
+
+
+def _group(axis):
+    """The process group of the mesh's ``axis``; None where it has one
+    rank (every collective over it, and its autograd Function, is the
+    identity there)."""
+    group = _MESH.get_group(axis)
+    return group if dist.get_world_size(group) > 1 else None
 
 
 def _groups(axes) -> tuple:
-    return tuple(_MESH.get_group(a) for a in axes)
+    return tuple(g for g in map(_group, axes) if g is not None)
 
 
 def sum_over(x: torch.Tensor, axes, grad_sum: bool = False):
@@ -185,13 +217,43 @@ def sum_over(x: torch.Tensor, axes, grad_sum: bool = False):
     (the ranks' downstream compute is one replicated computation), or
     with ``grad_sum`` is summed over the axes too (each rank's downstream
     compute is its own: a statistic every batch shard's loss reads)."""
-    return _Sum.apply(x, _groups(axes), grad_sum)
+    groups = _groups(axes)
+    return _Sum.apply(x, groups, grad_sum) if groups else x
 
 
 def grad_sum_over(x: torch.Tensor, axes):
     """``x`` as it is; its gradient summed over the mesh ``axes`` (each
     rank's backward holds a part of it)."""
-    return _GradSum.apply(x, _groups(axes))
+    groups = _groups(axes)
+    return _GradSum.apply(x, groups) if groups else x
+
+
+def tp_copy(x: torch.Tensor):
+    """Megatron's ``f``, on the input of a column-parallel product: the
+    identity; its gradient summed over `model` (each rank's columns give
+    a part of it)."""
+    return grad_sum_over(x, ("model",))
+
+
+def tp_sum(x: torch.Tensor):
+    """Megatron's ``g``, on the output of a row-parallel product: the
+    ranks' partial sums summed over `model`; its gradient passes as it is
+    (what follows is replicated over `model`)."""
+    return sum_over(x, ("model",))
+
+
+def gather_model(x: torch.Tensor, dim: int):
+    """This rank's part of an activation concatenated along ``dim`` with
+    the other `model` ranks' (group-rank order); the gradient of the whole
+    reduce-scattered back, summed (each rank's use gives a part)."""
+    group = _group("model")
+    return x if group is None else _GatherScatter.apply(
+        x, dim, group, dist.ReduceOp.SUM)
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the mesh's `model` axis."""
+    return _MESH.get_local_rank("model")
 
 
 def gather_param(shard: torch.Tensor, spec: tuple,
@@ -208,13 +270,16 @@ def gather_param(shard: torch.Tensor, spec: tuple,
         # minor axis first: a dim split over (pod, data) is pod-major
         for a in reversed(SH.entry_axes(ax)):
             named.add(a)
-            if axes is not None and a not in axes:
+            group = _group(a)
+            if group is None or (axes is not None and a not in axes):
                 continue
-            fn = _GatherAvg if a in batch else _GatherSlice
-            x = fn.apply(x, dim, _MESH.get_group(a))
+            x = (_GatherScatter.apply(x, dim, group, dist.ReduceOp.AVG)
+                 if a in batch else _GatherSlice.apply(x, dim, group))
     for a in batch:
-        if a not in named and (axes is None or a in axes):
-            x = _AvgGrad.apply(x, _MESH.get_group(a))
+        group = _group(a)
+        if a not in named and group is not None and (axes is None
+                                                     or a in axes):
+            x = _AvgGrad.apply(x, group)
     return x
 
 
@@ -224,8 +289,10 @@ def gathered(module: torch.nn.Module, names: Optional[tuple] = None):
     ``names``) that carry a ``shard_spec`` are whole (:func:`gather_param`):
     the sharded tensor is swapped out for the gathered one and back on
     exit.  A module whose class sets ``gathers_own_weights`` (the MoE
-    layer) is skipped: it gathers its weights itself.  Without a mesh, or
-    for parameters without a spec, nothing happens."""
+    layer) is skipped: it gathers its weights itself; so are the weights
+    a module's ``tp_weights()`` names (a dense sublayer that runs on its
+    `model` slice and gathers them through :func:`fsdp_gather`).  Without
+    a mesh, or for parameters without a spec, nothing happens."""
     if _MESH is None:
         yield
         return
@@ -234,7 +301,9 @@ def gathered(module: torch.nn.Module, names: Optional[tuple] = None):
         if names is None:
             mods = [m for m in module.modules()
                     if not getattr(m, "gathers_own_weights", False)]
-            pairs = [(m, n) for m in mods for n in m._parameters]
+            pairs = [(m, n) for m in mods for n in m._parameters
+                     if n not in (m.tp_weights() if hasattr(
+                         m, "tp_weights") else ())]
         else:
             pairs = [(module, n) for n in names]
         for m, n in pairs:

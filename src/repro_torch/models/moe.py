@@ -175,7 +175,7 @@ def _moe_ffn_local(p: MoE, cfg: ModelConfig, xf, mesh, axes: tuple,
     out = AS.sum_over(out.reshape(Tl, k, D).sum(dim=1), ("model",))
     counts = counts.clone()
     for a in axes:
-        torch.distributed.all_reduce(counts, group=mesh.get_group(a))
+        SH.all_reduce(counts, mesh.get_group(a))
     probs_sum = AS.sum_over(probs.sum(dim=0), axes, grad_sum=True)
     return out, counts, probs_sum
 

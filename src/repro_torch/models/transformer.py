@@ -19,21 +19,27 @@ cross-attention sublayer in every decoder block; a ``patch`` frontend
 (vlm) prepends stub patch embeddings.  ``init_cache(kv_shards=)`` gives
 this rank's slice of a sequence-sharded decode cache (split-KV decode).
 
-Under the sharded train step the model's parameters are this rank's
+Under a mesh (the sharded train, prefill and decode steps of
+:mod:`repro_torch.train_lib`) the model's parameters are this rank's
 shards, and each block (and the embedding, the final norms, the head)
-is gathered whole where it runs (:func:`.act_sharding.gathered`): inside
-the remat checkpoint, so the recompute gathers again.
+is gathered where it runs (:func:`.act_sharding.gathered`): inside the
+remat checkpoint, so the recompute gathers again.  The dense sublayers
+keep their `model` split and run on this rank's slice
+(:mod:`.layers`); ``init_cache(mesh=)`` gives this rank's block of the
+decode cache as :func:`repro_torch.sharding.cache_specs` lays it out.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fractal_sort import resolve_device
 from repro_torch.models import act_sharding as AS
@@ -341,7 +347,7 @@ def forward(model: Transformer, cfg: ModelConfig, tokens,
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
-               device=None, kv_shards: int = 1) -> list:
+               device=None, kv_shards: int = 1, mesh=None) -> list:
     """Decode cache, one dict per layer: ``{"k", "v"}`` zero (B, max_len,
     KV, hd) tensors for attention, ``{"mamba": ...}``, ``{"mlstm": ...}``
     or ``{"slstm": ...}`` zero recurrent states for the others.
@@ -353,7 +359,29 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
     kv_seq_axis=)`` over an axis of that size): attention K/V of
     ``max_len / kv_shards`` positions; the recurrent states are not
     split.  The reference, one process, stacks every slice on a leading
-    ``kv_shards`` axis instead."""
+    ``kv_shards`` axis instead.
+
+    ``mesh``: this rank's block of the global (B, max_len) cache under
+    :func:`~repro_torch.sharding.cache_specs` (the batch over the batch
+    axes and the K/V sequence over `model` where the batch divides, else
+    the sequence over every axis); ``kv_shards`` is then read from it."""
+    if mesh is not None:
+        if kv_shards != 1:
+            raise ValueError("init_cache: give kv_shards or mesh, not both")
+        sizes = SH.axis_sizes(mesh)
+        meta = init_cache(cfg, B, max_len, dtype, device="meta")
+        specs = SH.cache_specs(mesh, meta, B, kv_seq_shard=False)
+        device = resolve_device(device)
+
+        def local(x, spec):
+            if isinstance(x, dict):
+                return {k: local(v, spec[k]) for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(local(v, sp) for v, sp in zip(x, spec))
+            shape = [d // math.prod(sizes[a] for a in SH.entry_axes(ax))
+                     for d, ax in zip(x.shape, spec)]
+            return torch.zeros(shape, dtype=x.dtype, device=device)
+        return [local(layer, spec) for layer, spec in zip(meta, specs)]
     if kv_shards < 1 or max_len % kv_shards:
         raise ValueError(f"max_len {max_len} does not split into "
                          f"{kv_shards} equal slices")
@@ -379,37 +407,53 @@ def encode_cross_kv(model: Transformer, cfg: ModelConfig, frontend_embeds):
     enc_out = _encode(encoder, cfg, frontend_embeds.to(dtype))
     hd = cfg.resolved_head_dim
     B, Skv, _ = enc_out.shape
-    cross_kv = [{
-        name: (enc_out @ w.to(dtype)).reshape(B, Skv, cfg.n_kv_heads, hd)
-        for name, w in (("ck", block.cross.wk), ("cv", block.cross.wv))
-    } for block in model.blocks]
+    cross_kv = []
+    for block in model.blocks:
+        with AS.gathered(block.cross, ("wk", "wv")):
+            cross_kv.append({
+                name: (enc_out @ w.to(dtype)).reshape(B, Skv,
+                                                      cfg.n_kv_heads, hd)
+                for name, w in (("ck", block.cross.wk),
+                                ("cv", block.cross.wv))})
     return cross_kv, enc_out
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache: list, token,
-                pos, *, cross_kv=None, kv_seq_axis: Optional[str] = None):
+                pos, *, cross_kv=None, kv_seq_axis=None):
     """One decode step.  token: (B, 1) integer; pos: int (or 0-d tensor).
 
     Returns (logits (B, 1, V), cache); the attention caches are updated in
     place and the recurrent states replaced in their layer's dict (the
     reference returns a new cache).  ``cross_kv`` (from
     :func:`encode_cross_kv`) enables the enc-dec path.  MoE blocks route
-    this step's B tokens alone, and their aux loss is dropped."""
-    x = model.embed[token]
+    this step's B tokens alone, and their aux loss is dropped.
+    ``kv_seq_axis``: the mesh axis, or axes, the attention caches' sequence
+    is split over (:func:`.layers.attn_decode`)."""
+    with AS.gathered(model, ("embed",)):
+        x = model.embed[token]
     for layer, (block, c) in enumerate(zip(model.blocks, cache)):
-        h = L.rms_norm(x, block.norm1.scale, cfg.rms_eps)
-        h = _MIXERS[block.mixer_kind].decode(block.mixer, cfg, h, c, pos,
-                                             kv_seq_axis)
+        with AS.gathered(block):
+            x = _decode_block(block, cfg, x, c, pos, kv_seq_axis,
+                              None if cross_kv is None else cross_kv[layer])
+    with AS.gathered(model.final_norm):
+        x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
+    with gathered_head(model, cfg):
+        return x @ unembed(model, cfg), cache
+
+
+def _decode_block(block: Block, cfg: ModelConfig, x, c: dict, pos,
+                  kv_seq_axis, cross: Optional[dict]):
+    """One block of :func:`decode_step`; ``cross``: the layer's cross K/V."""
+    h = L.rms_norm(x, block.norm1.scale, cfg.rms_eps)
+    h = _MIXERS[block.mixer_kind].decode(block.mixer, cfg, h, c, pos,
+                                         kv_seq_axis)
+    x = x + h.to(x.dtype)
+    if cross is not None:
+        # every encoder position is visible: pos past any of them, no
+        # rope, the cross K/V left as they are
+        h = L.rms_norm(x, block.norm_x.scale, cfg.rms_eps)
+        h, _, _ = L.attn_decode(block.cross, cfg, h, cross["ck"],
+                                cross["cv"], 1 << 30, use_rope=False,
+                                update_cache=False)
         x = x + h.to(x.dtype)
-        if cross_kv is not None:
-            # every encoder position is visible: pos past any of them, no
-            # rope, the cross K/V left as they are
-            h = L.rms_norm(x, block.norm_x.scale, cfg.rms_eps)
-            h, _, _ = L.attn_decode(block.cross, cfg, h,
-                                    cross_kv[layer]["ck"],
-                                    cross_kv[layer]["cv"], 1 << 30,
-                                    use_rope=False, update_cache=False)
-            x = x + h.to(x.dtype)
-        x, _ = _ffn_apply(block, cfg, x)
-    x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
-    return x @ unembed(model, cfg), cache
+    return _ffn_apply(block, cfg, x)[0]

@@ -40,7 +40,8 @@ from repro_torch.configs.base import ModelConfig
 
 __all__ = ["RULES", "param_specs", "batch_axes", "dp_size", "data_specs",
            "cache_specs", "axis_sizes", "entry_axes", "local_shard",
-           "gather_full", "all_gather_dim", "reduce_scatter_dim"]
+           "gather_full", "all_gather_dim", "reduce_scatter_dim",
+           "all_reduce", "model_size", "splits_heads", "names_model"]
 
 _FSDP = "data"
 _TP = "model"
@@ -116,6 +117,22 @@ def axis_sizes(mesh) -> Mapping[str, int]:
     if isinstance(mesh, Mapping):
         return mesh
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s `model` axis (1 where it has none)."""
+    return axis_sizes(mesh).get(_TP, 1)
+
+
+def splits_heads(n_heads: int, mesh) -> bool:
+    """Whether ``n_heads`` whole heads split evenly over `model`: the
+    condition for an attention sublayer to run on its `model` slice."""
+    return n_heads % model_size(mesh) == 0
+
+
+def names_model(spec: Optional[tuple], dim: int) -> bool:
+    """Whether ``spec`` (``None``: no spec) splits ``dim`` over `model`."""
+    return spec is not None and _TP in entry_axes(spec[dim])
 
 
 def entry_axes(ax) -> tuple:
@@ -292,7 +309,10 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single",
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in group-rank order."""
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order
+    (``x`` itself over a one-rank group: no collective)."""
+    if dist.get_world_size(group) == 1:
+        return x
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((dist.get_world_size(group) * front.shape[0],)
                           + front.shape[1:])
@@ -303,12 +323,22 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
                        op=dist.ReduceOp.SUM) -> torch.Tensor:
     """This rank's block along ``dim`` of ``x`` reduced over the group
-    (``op``): the inverse of :func:`all_gather_dim` for gradients."""
+    (``op``): the inverse of :func:`all_gather_dim` for gradients (``x``
+    itself over a one-rank group)."""
+    if dist.get_world_size(group) == 1:
+        return x
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((front.shape[0] // dist.get_world_size(group),)
                           + front.shape[1:])
     _reduce_scatter_single(out, front, op=op, group=group)
     return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """``dist.all_reduce`` of ``x`` in place, skipped over a one-rank group:
+    the reference's program has no collective over an axis of size 1."""
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(x, op=op, group=group)
 
 
 def gather_full(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

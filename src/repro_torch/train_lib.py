@@ -16,16 +16,21 @@ a config with ``use_pallas_attention`` is refused.
 
 :func:`make_compressed_ddp_step` is the data-parallel step whose gradient
 all-reduce is int8 (:func:`repro_torch.optim.compressed_psum`) over a
-``torch.distributed`` group.  :func:`shard_train_step` is the train step
-on a (data, model) mesh, SPMD over its ranks: :func:`shard_model` stores
-each parameter by its spec (:mod:`repro_torch.sharding`), the model
-gathers each block whole where it runs, and :func:`gather_state` /
-:func:`load_state` move a sharded state to full tensors and back.
+``torch.distributed`` group.  :func:`shard_train_step`,
+:func:`shard_prefill_step` and :func:`shard_decode_step` are the train,
+prefill and decode steps on a (data, model) mesh, SPMD over its ranks:
+:func:`shard_model` stores each parameter by its spec
+(:mod:`repro_torch.sharding`; :func:`serving_config` gives the
+reference's serving policy), the model gathers each block over the batch
+axes where it runs and splits its dense sublayers over `model`, and
+:func:`gather_state` / :func:`load_state` move a sharded state to full
+tensors and back.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 import torch
@@ -42,7 +47,8 @@ __all__ = ["AUX_WEIGHT", "LOSS_CHUNK", "chunked_ce", "loss_fn",
            "value_and_grad", "full_precision", "make_train_step",
            "make_prefill_step", "make_decode_step",
            "make_compressed_ddp_step", "init_error_feedback",
-           "shard_model", "gather_state", "load_state", "shard_train_step"]
+           "shard_model", "gather_state", "load_state", "shard_train_step",
+           "serving_config", "shard_prefill_step", "shard_decode_step"]
 
 AUX_WEIGHT = 0.01  # load-balancing loss weight
 LOSS_CHUNK = 512   # sequence-chunked cross-entropy (bounds fp32 logits)
@@ -277,7 +283,7 @@ def _global_norm(grads: dict, specs: dict, mesh) -> torch.Tensor:
     total = 0.0
     for axes, s in sums.items():  # the same order on every rank
         for a in axes:
-            dist.all_reduce(s, group=mesh.get_group(a))
+            SH.all_reduce(s, mesh.get_group(a))
         total = total + s
     return torch.sqrt(total)
 
@@ -293,13 +299,16 @@ def shard_train_step(cfg: ModelConfig, oc: O.OptimizerConfig, mesh):
       moments take the same specs and ``step`` is replicated.
     * ``batch`` is the global batch, the same on every rank: each rank
       takes its slice over the batch axes (which must divide it).
-    * The model gathers each block's weights whole where it runs, inside
-      its remat checkpoint, and the embedding, final norm and head where
-      they are used; the MoE branch gathers its expert weights and router
-      over `data` itself (:mod:`repro_torch.models.act_sharding`).
-    * Dense compute is replicated over `model`; the gathers' backward
-      reduces each gradient to this rank's shard, averaged over `data`
-      (each data rank's loss is the mean over its own shard).
+    * The model gathers each block's weights where it runs, inside its
+      remat checkpoint, and the embedding, final norm and head where they
+      are used; attention and the MLP keep their `model` split and run on
+      this rank's slice; the MoE branch gathers its expert weights and
+      router over `data` itself (:mod:`repro_torch.models.act_sharding`).
+    * The other compute (embedding, head, mamba and xLSTM mixers, a
+      sublayer whose heads do not split) is replicated over `model`; the
+      gathers' backward reduces each gradient to this rank's shard,
+      averaged over `data` (each data rank's loss is the mean over its
+      own shard).
     * The clip norm counts unique elements; AdamW, elementwise, runs on
       the shards.  ``loss`` and ``aux_loss`` are averaged over the batch
       axes, ``grad_norm`` is the global norm.
@@ -312,16 +321,11 @@ def shard_train_step(cfg: ModelConfig, oc: O.OptimizerConfig, mesh):
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
-        specs = {name: getattr(p, "shard_spec", None)
-                 for name, p in params.items()}
-        if any(spec is None for spec in specs.values()):
-            raise ValueError("shard_train_step takes a sharded model: call "
-                             "shard_model(model, cfg, mesh) first")
+        specs = _sharded_specs(model, "shard_train_step")
         if batch["tokens"].shape[0] % n_dp:
             raise ValueError(f"a batch of {batch['tokens'].shape[0]} does "
                              f"not split over {n_dp} data ranks")
-        local = {k: SH.local_shard(v, spec, mesh) for (k, v), spec in zip(
-            batch.items(), SH.data_specs(mesh, batch).values())}
+        local = _local_batch(batch, mesh)
         with AS.meshed(axes, mesh), full_precision():
             (_, (loss, aux)), grads = value_and_grad(model, cfg, local)
             norm = _global_norm(grads, specs, mesh)
@@ -330,10 +334,97 @@ def shard_train_step(cfg: ModelConfig, oc: O.OptimizerConfig, mesh):
         del grads
         for t in (loss, aux):
             for a in axes:
-                dist.all_reduce(t, op=dist.ReduceOp.AVG,
-                                group=mesh.get_group(a))
+                SH.all_reduce(t, mesh.get_group(a), dist.ReduceOp.AVG)
         metrics = {"loss": loss, "aux_loss": aux,
                    "total_loss": loss + AUX_WEIGHT * aux, **om}
         return opt_state, metrics
 
     return train_step
+
+
+def _sharded_specs(model, what: str) -> dict:
+    """``{name: shard_spec}`` of a model stored by :func:`shard_model`."""
+    specs = {name: getattr(p, "shard_spec", None)
+             for name, p in model.named_parameters()}
+    if any(spec is None for spec in specs.values()):
+        raise ValueError(f"{what} takes a sharded model: call "
+                         f"shard_model(model, cfg, mesh) first")
+    return specs
+
+
+def _local_batch(batch: dict, mesh) -> dict:
+    """This rank's block of each batch tensor under
+    :func:`~repro_torch.sharding.data_specs` (a batch the data ranks do
+    not split is replicated)."""
+    return {k: SH.local_shard(v, spec, mesh) for (k, v), spec in zip(
+        batch.items(), SH.data_specs(mesh, batch).values())}
+
+
+SERVING_RESIDENT_BYTES = 10e9  # bf16 weights a `model` rank keeps resident
+
+
+def serving_config(cfg: ModelConfig, mesh) -> ModelConfig:
+    """The reference's serving parameter policy for decode: where the
+    bf16 weights split over `model` alone stay under
+    ``SERVING_RESIDENT_BYTES`` a rank, ``fsdp=False`` (the weights stay
+    resident, no per-step gather over `data`); ``cfg`` otherwise.  Store
+    the model by the result (``shard_model(model, serving_config(cfg,
+    mesh), mesh)``)."""
+    if cfg.params_count() * 2 / SH.model_size(mesh) < SERVING_RESIDENT_BYTES:
+        return dataclasses.replace(cfg, fsdp=False)
+    return cfg
+
+
+def shard_prefill_step(cfg: ModelConfig, mesh):
+    """The reference's ``jit`` of :func:`make_prefill_step` with explicit
+    shardings over ``mesh``, SPMD: every rank calls ``step(model, batch) ->
+    logits`` on a model stored by :func:`shard_model`, with the global
+    batch; it returns the logits of its batch shard (B / dp, S, V) (a
+    batch the data ranks do not split: all of it).  Attention and the MLP
+    run on the rank's `model` slice; the head is gathered whole, where the
+    reference's output splits the vocab over `model`."""
+    axes = SH.batch_axes(mesh)
+
+    @torch.inference_mode()
+    def prefill_step(model, batch):
+        _sharded_specs(model, "shard_prefill_step")
+        local = _local_batch(batch, mesh)
+        with AS.meshed(axes, mesh):
+            logits, _ = T.forward(model, cfg, local["tokens"],
+                                  frontend_embeds=local.get("frontend"))
+        return logits
+
+    return prefill_step
+
+
+def shard_decode_step(cfg: ModelConfig, mesh):
+    """The reference's ``jit`` of :func:`make_decode_step` with explicit
+    shardings over ``mesh``, SPMD: ``step(model, cache, token, pos[,
+    cross_kv]) -> (next_token, cache)`` on a model stored by
+    :func:`shard_model` (:func:`serving_config` gives the reference's
+    policy), with the global ``token`` (B, 1) and this rank's block of the
+    cache (``init_cache(..., mesh=mesh)`` for the global B).  Attention is
+    split-KV over the cache's sequence split: `model` where the data ranks
+    split the batch, every axis otherwise (the batch replicated), as
+    :func:`~repro_torch.sharding.cache_specs` lays it out.  ``cross_kv``
+    (enc-dec) is whole, its batch split as the token's.  Returns this
+    rank's batch shard of the next tokens."""
+    axes = SH.batch_axes(mesh)
+    n_dp = SH.dp_size(mesh)
+
+    @torch.inference_mode()
+    def decode_step(model, cache, token, pos, cross_kv=None):
+        _sharded_specs(model, "shard_decode_step")
+        split = token.shape[0] % n_dp == 0
+        kv_axis = "model" if split else axes + ("model",)
+        local = _local_batch({"token": token}, mesh)["token"]
+        if cross_kv is not None:
+            cross_kv = [_local_batch(c, mesh) for c in cross_kv]
+        with AS.meshed(axes, mesh):
+            logits, cache = T.decode_step(model, cfg, cache, local, pos,
+                                          cross_kv=cross_kv,
+                                          kv_seq_axis=kv_axis)
+        nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return nxt, cache
+
+    return decode_step

@@ -372,3 +372,19 @@ def test_reconstruct_matches_reference(rng, l_n, p):
         got = reconstruct(torch.from_numpy(counts), torch.from_numpy(trailing),
                           l_n, p, lsb_tree_order=lsb)
         np.testing.assert_array_equal(_u32(got), _u32(want))
+
+
+def test_quickstart_example_runs_on_the_cpu(monkeypatch, capsys):
+    """``examples/torch_quickstart.py --device cpu``: the sort, the batched
+    stream, the trie queries and the MoE dispatch, each checked in it."""
+    import runpy
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_quickstart.py"
+    monkeypatch.setattr(sys, "argv", [str(path), "--device", "cpu"])
+    runpy.run_path(str(path), run_name="__main__")
+    out = capsys.readouterr().out
+    assert "streamed in 4 batches -> identical output" in out
+    assert out.rstrip().endswith("quickstart OK")

@@ -29,6 +29,7 @@ def test_port_imports_load_no_jax_and_no_reference_module():
         "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.runtime, repro_torch.sharding\n"
         "import repro_torch.launch.mesh, repro_torch.models.act_sharding\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.comm_stats\n"
         "import repro_torch.pipeline\n"
         "import repro_torch.query, repro_torch.query.operators\n"
         "import repro_torch.core.dispatch, repro_torch.core.faults\n"

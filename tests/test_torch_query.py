@@ -687,6 +687,7 @@ def test_example_pipeline_runs_on_the_cpu():
     res = subprocess.run(
         [sys.executable, str(root / "examples" / "torch_query_pipeline.py"),
          "--device", "cpu"], capture_output=True, text=True, timeout=300,
-        cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                           OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stdout + res.stderr
     assert "query pipeline OK on cpu" in res.stdout

@@ -1,10 +1,11 @@
 """The port's sharded paths over real process groups, against the JAX
 reference's on forced host devices.
 
-One module fixture runs three things side by side: the reference in one
+One module fixture runs four things side by side: the reference in one
 subprocess with four forced host devices (its (2, 2) ``("data",
-"model")`` mesh, a (4,) split-KV mesh and a (4,) pipeline mesh), the
-port in one ``torch.multiprocessing.spawn`` of a four-rank gloo group
+"model")`` mesh, a (4,) split-KV mesh and a (4,) pipeline mesh) and in
+another (the unsharded steps of the tensor-parallel cases), the port in
+one ``torch.multiprocessing.spawn`` of a four-rank gloo group
 (the (2, 2) mesh and a (4, 1) one), every port check inside the
 workers, and the train driver under ``torch.distributed.run`` on a
 (2, 2) mesh.  Weights come from the reference's initialisers through
@@ -33,7 +34,18 @@ workers, and the train driver under ``torch.distributed.run`` on a
 * ``gpipe_apply`` with S = 4, M = 6, mb = 2, D = 16 within 1e-5 of the
   reference's and of its sequential application;
 * the driver restarts from its checkpoint and its losses equal the
-  one-rank driver's.
+  one-rank driver's;
+* tensor parallelism on the (2, 2) mesh: ``shard_prefill_step`` logits
+  and ``T.decode_step`` logits over four positions (B = 2: the cache's
+  sequence over `model`; for llama also B = 1: over both axes) within
+  1e-5 of the reference's ``make_prefill_step`` / ``decode_step`` on the
+  same weights, for smoke llama3.2-1b and whisper-small (cross-attention on
+  the slice), llama with ``n_kv_heads = 1`` (k and v gathered over
+  `model`) and with ``n_heads = 3`` (the layer gathered whole); the
+  cache gathered by ``cache_specs`` and ``shard_decode_step``'s next
+  tokens equal the reference's; the last three cases' gradients, gathered,
+  within rtol 1e-4 / atol 1e-5 of the unsharded ones; each rank's q heads
+  and product widths are its `model` slice's.
 
 The (1, 1) mesh runs in this process, on a one-rank gloo group.
 """
@@ -77,6 +89,13 @@ RTOL, ATOL = 1e-4, 1e-5
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 16, 3
 KV_S, KV_POS = 64, 37  # 4 shards of 16 positions: pos 37 is rank 2's 5th
 PIPE = dict(S=4, M=6, mb=2, D=16)
+TP_CASES = {"llama": (LLAMA, {}), "whisper": ("whisper-small", {}),
+            "kv1": (LLAMA, {"n_kv_heads": 1}),
+            "h3": (LLAMA, {"n_heads": 3, "n_kv_heads": 1})}
+TP_B, TP_S, TP_FRAMES, TP_LEN, TP_STEPS = 2, 16, 12, 8, 4
+# decode batches: 2 splits the cache's sequence over `model`, 1 over both
+# axes (the batch replicated)
+TP_BATCHES = {case: (2, 1) if case == "llama" else (2,) for case in TP_CASES}
 
 
 def _cfgs(arch):
@@ -88,6 +107,13 @@ def _cfgs(arch):
             c.moe, capacity_factor=float(c.moe.num_experts)))
             for c in (cfg, jcfg))
     return cfg, jcfg
+
+
+def _tp_cfgs(case):
+    """Smoke configs of a tensor-parallel case, overrides applied."""
+    arch, over = TP_CASES[case]
+    return (dataclasses.replace(smoke_config(get_config(arch)), **over),
+            dataclasses.replace(jsmoke_config(jget_config(arch)), **over))
 
 
 def _batch(tok) -> dict:
@@ -114,6 +140,12 @@ def _inputs() -> dict:
     inp["kv_x"] = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
     inp["kv_k"], inp["kv_v"] = (rng.standard_normal(
         (2, KV_S, cfg.n_kv_heads, hd)).astype(np.float32) for _ in range(2))
+    inp["tp_params"] = {case: jax.tree.map(np.asarray, JT.init_params(
+        jax.random.PRNGKey(5), _tp_cfgs(case)[1])) for case in TP_CASES}
+    inp["tp_tokens"] = rng.integers(0, cfg.vocab, (TP_B, TP_S)).astype(
+        np.int32)
+    inp["tp_frames"] = rng.standard_normal(
+        (TP_B, TP_FRAMES, cfg.d_model)).astype(np.float32)
     p = PIPE
     inp["pipe_w"] = (rng.standard_normal((p["S"], p["D"], p["D"])) * 0.3
                      ).astype(np.float32)
@@ -220,6 +252,51 @@ _REF_SCRIPT = textwrap.dedent("""
 """).replace("KV_POS", str(KV_POS))
 
 
+# the reference's unsharded prefill and decode of the tensor-parallel cases,
+# in a process of its own beside the other
+_REF_TP_SCRIPT = textwrap.dedent("""
+    import dataclasses, os, pickle, sys
+    out_dir = sys.argv[1]
+    import numpy as np, jax, jax.numpy as jnp
+    from repro import train_lib as TL
+    from repro.configs import get_config, smoke_config
+    from repro.models import transformer as T
+    with open(os.path.join(out_dir, "in.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {}
+    for case, (arch, over) in TP_CASES.items():
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **over)
+        params = jax.tree.map(jnp.asarray, inp["tp_params"][case])
+        batch = {"tokens": jnp.asarray(inp["tp_tokens"])}
+        frames = jnp.asarray(inp["tp_frames"])
+        if cfg.encoder_layers:
+            batch["frontend"] = frames
+        out[f"tp/{case}/prefill"] = np.asarray(
+            jax.jit(TL.make_prefill_step(cfg))(params, batch))
+        decode = jax.jit(lambda p, c, t, pos, x: T.decode_step(
+            p, cfg, c, t, pos, cross_kv=x))
+        greedy = jax.jit(lambda p, c, t, pos, x: TL.make_decode_step(cfg)(
+            p, c, t, pos, cross_kv=x))
+        for B in TP_BATCHES[case]:
+            cache = T.init_cache(cfg, B, TP_LEN, jnp.float32)
+            cross = (T.encode_cross_kv(params, cfg, frames[:B])[0]
+                     if cfg.encoder_layers else None)
+            tok = batch["tokens"][:B]
+            for pos in range(TP_STEPS):
+                logits, cache = decode(params, cache, tok[:, pos:pos + 1],
+                                       pos, cross)
+                out[f"tp/{case}/decode/{B}/{pos}"] = np.asarray(logits)
+            nxt, cache = greedy(params, cache,
+                                tok[:, TP_STEPS:TP_STEPS + 1], TP_STEPS,
+                                cross)
+            out[f"tp/{case}/next/{B}"] = np.asarray(nxt)
+            out[f"tp/{case}/cache_k/{B}"] = np.asarray(cache["b0"]["k"][0])
+    np.savez(os.path.join(out_dir, "ref_tp.npz"), **out)
+""").replace("TP_CASES", repr(TP_CASES)).replace(
+    "TP_BATCHES", repr(TP_BATCHES)).replace("TP_LEN", str(TP_LEN)).replace(
+    "TP_STEPS", str(TP_STEPS))
+
+
 def _count_calls(module, names, counts):
     """Wrap ``module.<name>`` to count its calls into ``counts``."""
     for name in names:
@@ -307,6 +384,8 @@ def _worker(rank: int, out_dir: str) -> None:
                 out[f"kv/{update}/k"] = SH.gather_full(ck, spec,
                                                        mesh4).numpy()
 
+        _tp_worker(inp, mesh, out)
+
         # gpipe over the (4, 1) mesh's data axis
         w = torch.from_numpy(inp["pipe_w"])
         out["pipe/got"] = gpipe_apply(
@@ -316,6 +395,86 @@ def _worker(rank: int, out_dir: str) -> None:
         np.savez(os.path.join(out_dir, f"port{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
+
+
+def _tp_train_batch(inp, cfg) -> dict:
+    batch = _batch(inp["tp_tokens"])
+    if cfg.encoder_layers:
+        batch["frontend"] = torch.from_numpy(inp["tp_frames"])
+    return batch
+
+
+def _tp_worker(inp, mesh, out) -> None:
+    """The tensor-parallel cases on the (2, 2) mesh: prefill, four decode
+    positions at B = 2 and 1, the next token; the product shapes of
+    llama's prefill."""
+    seen = {"heads": [], "widths": []}
+    flash, gather = L.flash_attention, L.fsdp_gather
+
+    def heads(q, *a, **kw):
+        seen["heads"].append(q.shape[2])
+        return flash(q, *a, **kw)
+
+    def widths(w, tp_dim):
+        w = gather(w, tp_dim)
+        seen["widths"].append(tuple(w.shape))
+        return w
+
+    tokens = torch.from_numpy(inp["tp_tokens"])
+    frames = torch.from_numpy(inp["tp_frames"])
+    for case in TP_CASES:
+        cfg, _ = _tp_cfgs(case)
+        model = params_from_jax(inp["tp_params"][case], cfg, device="cpu")
+        TL.shard_model(model, cfg, mesh)
+        batch = {"tokens": tokens}
+        if cfg.encoder_layers:
+            batch["frontend"] = frames
+        L.flash_attention, L.fsdp_gather = heads, widths
+        try:
+            logits = TL.shard_prefill_step(cfg, mesh)(model, batch)
+        finally:
+            L.flash_attention, L.fsdp_gather = flash, gather
+        if case == "llama":
+            out["tp/shapes/heads"] = np.array(seen["heads"])
+            out["tp/shapes/widths"] = np.array(seen["widths"])
+        out[f"tp/{case}/prefill"] = SH.gather_full(
+            logits, ("data", None, None), mesh).numpy()
+        for B in TP_BATCHES[case]:
+            split = B % 2 == 0
+            bspec = ("data" if split else None, None)
+            cache = T.init_cache(cfg, B, TP_LEN, torch.float32, device="cpu",
+                                 mesh=mesh)
+            cross = None
+            with AS.meshed(("data",), mesh), torch.inference_mode():
+                if cfg.encoder_layers:
+                    cross, _ = T.encode_cross_kv(model, cfg, frames[:B])
+                    cross_local = [{k: SH.local_shard(v, bspec + (None,) * 2,
+                                                      mesh)
+                                    for k, v in c.items()} for c in cross]
+                for pos in range(TP_STEPS):
+                    tok = SH.local_shard(tokens[:B, pos:pos + 1], bspec, mesh)
+                    logits, cache = T.decode_step(
+                        model, cfg, cache, tok, pos,
+                        cross_kv=cross_local if cross else None,
+                        kv_seq_axis="model" if split else ("data", "model"))
+                    out[f"tp/{case}/decode/{B}/{pos}"] = SH.gather_full(
+                        logits, bspec + (None,), mesh).numpy()
+            nxt, cache = TL.shard_decode_step(cfg, mesh)(
+                model, cache, tokens[:B, TP_STEPS:TP_STEPS + 1], TP_STEPS,
+                cross_kv=cross)
+            out[f"tp/{case}/next/{B}"] = SH.gather_full(nxt, bspec,
+                                                        mesh).numpy()
+            spec = SH.cache_specs(mesh, T.init_cache(
+                cfg, B, TP_LEN, torch.float32, device="meta"), B, False)
+            out[f"tp/{case}/cache_k/{B}"] = SH.gather_full(
+                cache[0]["k"], spec[0]["k"], mesh).numpy()
+        if case != "llama":  # llama's: the sharded train step's test
+            local = TL._local_batch(_tp_train_batch(inp, cfg), mesh)
+            with AS.meshed(("data",), mesh):
+                _, grads = TL.value_and_grad(model, cfg, local)
+            for name, p in model.named_parameters():
+                out[f"tp/{case}/grad/{name}"] = SH.gather_full(
+                    grads[name], p.shard_spec, mesh).numpy()
 
 
 def _driver_cmd(ck: str, *launch) -> list:
@@ -339,9 +498,10 @@ def runs(tmp_path_factory):
     # JAX_PLATFORMS=cpu: the image ships libtpu; without the pin jax probes
     # for a TPU and hangs the child
     env.update(PYTHONPATH="src", JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
-    ref = subprocess.Popen([sys.executable, "-c", _REF_SCRIPT, out_dir],
-                           cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True)
+    ref, ref_tp = (subprocess.Popen(
+        [sys.executable, "-c", script, out_dir], cwd=REPO_ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for script in (_REF_SCRIPT, _REF_TP_SCRIPT))
     ck = os.path.join(out_dir, "ck")
     driver = subprocess.Popen(
         _driver_cmd(ck, sys.executable, "-m", "torch.distributed.run",
@@ -353,14 +513,17 @@ def runs(tmp_path_factory):
         mp.spawn(_worker, args=(out_dir,), nprocs=4, join=True)
     finally:
         _, ref_log = ref.communicate(timeout=600)
+        _, tp_log = ref_tp.communicate(timeout=600)
         drv_out, drv_log = driver.communicate(timeout=600)
     assert ref.returncode == 0, ref_log[-4000:]
+    assert ref_tp.returncode == 0, tp_log[-4000:]
     assert driver.returncode == 0, drv_out + drv_log[-4000:]
     with open(os.path.join(out_dir, "ref_trees.pkl"), "rb") as f:
         trees = pickle.load(f)
     with open(os.path.join(ck, "journal.jsonl")) as f:
         journal = [json.loads(line) for line in f]
-    return (inp, dict(np.load(os.path.join(out_dir, "ref.npz"))), trees,
+    return (inp, {**np.load(os.path.join(out_dir, "ref.npz")),
+                  **np.load(os.path.join(out_dir, "ref_tp.npz"))}, trees,
             [dict(np.load(os.path.join(out_dir, f"port{r}.npz")))
              for r in range(4)], (drv_out, journal))
 
@@ -555,6 +718,60 @@ def test_split_kv_cache_write_lands_on_the_owner_only(runs):
     # the port's written row is the dense path's
     np.testing.assert_array_equal(port[0]["kv/True/k"],
                                   _dense_decode(inp, True)[1])
+
+
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_tensor_parallel_prefill_and_decode_match_reference(runs, case):
+    """Prefill logits, four decode positions at B = 2 (cache sequence over
+    `model`) and B = 1 (over both axes), the cache after them and the next
+    token, on the (2, 2) mesh against the reference's unsharded steps."""
+    _, ref, _, port, _ = runs
+    for out in port:
+        np.testing.assert_allclose(out[f"tp/{case}/prefill"],
+                                   ref[f"tp/{case}/prefill"], rtol=1e-5,
+                                   atol=1e-5)
+        for B in TP_BATCHES[case]:
+            for pos in range(TP_STEPS):
+                key = f"tp/{case}/decode/{B}/{pos}"
+                np.testing.assert_allclose(out[key], ref[key], rtol=1e-5,
+                                           atol=1e-5, err_msg=key)
+            np.testing.assert_allclose(out[f"tp/{case}/cache_k/{B}"],
+                                       ref[f"tp/{case}/cache_k/{B}"],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_array_equal(out[f"tp/{case}/next/{B}"],
+                                          ref[f"tp/{case}/next/{B}"])
+
+
+@pytest.mark.parametrize("case", [c for c in TP_CASES if c != "llama"])
+def test_tensor_parallel_gradients_match_unsharded(runs, case):
+    """Every gradient through the split layers (whisper's cross-attention,
+    the k and v gathered over `model` and their reduce-scattered
+    gradients, the layer gathered whole), gathered, against one rank's."""
+    inp, _, _, port, _ = runs
+    cfg, _ = _tp_cfgs(case)
+    model = params_from_jax(inp["tp_params"][case], cfg, device="cpu")
+    _, grads = TL.value_and_grad(model, cfg, _tp_train_batch(inp, cfg))
+    for out in port:
+        for name, g in grads.items():
+            np.testing.assert_allclose(out[f"tp/{case}/grad/{name}"],
+                                       g.numpy(), rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
+
+
+def test_tensor_parallel_products_run_on_the_model_slice(runs):
+    """llama's prefill on the (2, 2) mesh: attention over n_heads / 2 q
+    heads, and every dense weight at its `model` slice's width: wq, wk,
+    wv (D, H hd / 2), wo (H hd / 2, D), wi, wg (D, d_ff / 2), wd (d_ff /
+    2, D), each gathered over `data` only."""
+    _, _, _, port, _ = runs
+    cfg, _ = _tp_cfgs("llama")
+    D, q = cfg.d_model, cfg.n_heads * cfg.resolved_head_dim // 2
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim // 2
+    f = cfg.d_ff // 2
+    for out in port:
+        assert out["tp/shapes/heads"].tolist() == [cfg.n_heads // 2]
+        assert [tuple(w) for w in out["tp/shapes/widths"]] == [
+            (D, q), (D, kv), (D, kv), (q, D), (D, f), (D, f), (f, D)]
 
 
 def test_gpipe_matches_reference_and_sequential(runs):

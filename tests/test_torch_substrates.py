@@ -311,7 +311,9 @@ def _train(args, timeout=300):
     (the port imports no JAX, so the child needs no JAX_PLATFORMS pin)."""
     env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR")
            if k in os.environ}
-    env["PYTHONPATH"] = "src"
+    # one thread: the smoke model's tensors are tiny, and the test
+    # workers beside the child already hold the cores
+    env.update(PYTHONPATH="src", OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", *args,
          "--device", "cpu"], capture_output=True, text=True,

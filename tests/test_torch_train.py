@@ -72,10 +72,18 @@ def _cfgs(arch):
     return smoke_config(get_config(arch)), jsmoke_config(jget_config(arch))
 
 
-def _model(jcfg, cfg, seed=0):
+@functools.cache
+def _ref_params(jcfg, seed):
+    """The reference's initial parameters (immutable), made once a
+    (config, seed) in the module: the eager init is most of a small
+    config's cost."""
     jparams = JT.init_params(jax.random.PRNGKey(seed), jcfg)
-    return params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
-                           device="cpu"), jparams
+    return jparams, jax.tree.map(np.asarray, jparams)
+
+
+def _model(jcfg, cfg, seed=0):
+    jparams, host = _ref_params(jcfg, seed)
+    return params_from_jax(host, cfg, device="cpu"), jparams
 
 
 def _batch(cfg, seed=1, b=B, s=S):
