@@ -348,12 +348,17 @@ then, with the family models freed and the peak memory statistics reset:
    qwen3-moe-30b-a3b at ``--train-moe-layers`` layers (its prefill and
    one sharded train step, the dispatch on K1/K2) and llama's decode
    through the split layers, split-KV over `model` (16 steps, B = 2),
+   then jamba-v0.1-52b's one period (8 layers, fp32) and xlstm-125m
+   (full, fp32), prefill (2 x 2048) and 16 decode steps each through the
+   split mamba, mLSTM and sLSTM and the vocab-split embedding and head,
    each held to the unsharded step (1e-3; the train step by 21's gate),
-   fatal unless K5 launched once a layer and K1, K2 launched; b. rank 0
-   of a (1, 4) mesh on a fake process group over the card: llama's
-   prefill as one card of a 4-way group computes it, timed only (its
-   collectives move nothing), and K5 at that local shape (2, 2048, 8,
-   64) against its plain version (1e-4); c. the dry-run of four cells on
+   fatal unless K5 launched once a layer and K1, K2 launched (jamba: K5
+   once, K1 and K2 once a MoE layer on its prefill); b. rank 0 of a (1,
+   4) mesh on a fake process group over the card: llama's, jamba's
+   period's and xlstm's prefills as one card of a 4-way group computes
+   them, timed only (its collectives move nothing), and K5 at llama's
+   local shape (2, 2048, 8, 64) against its plain version (1e-4); c. the
+   dry-run of four cells on
    a fake 16 x 16 group (``repro_torch.launch.dryrun``, four child
    processes on the host's CPU after a-b), their ``[dryrun]`` lines.
    22a's launches form the kernel table's "tensor_parallel" column.
@@ -3641,22 +3646,29 @@ TP_DRYRUN_CELLS = (("llama3.2-1b", "train_4k"),
 
 
 def tp_phases(args, dev, card: str, path_counts: dict) -> list:
-    """Phase 22: tensor parallelism over `model` in the dense layers.
+    """Phase 22: tensor parallelism over `model`: the dense layers, the
+    vocab-split embedding, head and loss, mamba and the xLSTM mixers.
 
     22a, on a (1, 1) mesh of one NCCL rank: llama3.2-1b's prefill at full
     width through K5 on the local heads, qwen3-moe-30b-a3b cut to
     ``--train-moe-layers`` layers (its prefill and one sharded train step,
     the dispatch on K1/K2) and llama's split-KV decode through the TP
     layers, each held to the unsharded step (logits and decode within
-    1e-3, the train step by 21's gate); adds
+    1e-3, the train step by 21's gate); then jamba-v0.1-52b's one period
+    (8 layers, fp32; K5 in its attention layer, K1/K2 in its four MoE
+    layers) and xlstm-125m at full width and depth, fp32: the prefill and
+    ``SHARD_DECODE_STEPS`` decode steps through the split mixers held to
+    the unsharded ones within 1e-3; adds
     ``path_counts["tensor_parallel"]``.  22b, rank 0 of a (1, 4) mesh on a
     fake process group over the card: llama's prefill as one card of a
     4-way group computes it (8 of 32 heads, 2 of 8 KV heads, F 2048 of
-    8192), timed only (the fake collectives leave partial sums and
-    unfilled gathers), and K5 at that local shape against its plain
-    version.  22c: the dry-run of ``TP_DRYRUN_CELLS`` on a fake 16 x 16
-    group, four child processes on the host's cores after 22a-b.
-    Returns e2e rows."""
+    8192, a quarter of the vocab), and jamba's period's and xlstm-125m's
+    likewise (a quarter of mamba's channels and of jamba's experts;
+    xlstm's 1 of 4 mLSTM heads and 192 of 768 sLSTM units), timed only
+    (the fake collectives leave partial sums and unfilled gathers), and
+    K5 at llama's local shape against its plain version.  22c: the dry-run
+    of ``TP_DRYRUN_CELLS`` on a fake 16 x 16 group, four child processes
+    on the host's cores after 22a-b.  Returns e2e rows."""
     from repro_torch import train_lib as TL
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
@@ -3680,6 +3692,11 @@ def tp_phases(args, dev, card: str, path_counts: dict) -> list:
             llama = dataclasses.replace(llama, n_layers=args.lm_layers)
         moe = dataclasses.replace(get_config(MOE_ARCH),
                                   n_layers=args.train_moe_layers)
+        jamba = get_config(HYBRID_ARCH)
+        jamba = dataclasses.replace(jamba, n_layers=len(jamba.pattern),
+                                    use_pallas_attention=True)
+        recurrent = ((jamba, f"{HYBRID_ARCH} one period fp32"),
+                     (get_config(XLSTM_ARCH), f"{XLSTM_ARCH} fp32"))
 
         def counted(fn):
             """``fn()`` with the launch counts zeroed before it and added
@@ -3724,6 +3741,101 @@ def tp_phases(args, dev, card: str, path_counts: dict) -> list:
                 f"{plain_ms:.2f} ms ({ms / plain_ms:.4f}); launches "
                 f"{json.dumps(launched)} ({time.perf_counter() - t0:.1f} s)")
             return row
+
+        def recurrent_held(cfg, what: str, mesh) -> dict:
+            """The unsharded prefill and ``SHARD_DECODE_STEPS`` decode
+            steps, then ``shard_prefill_step`` and the decode steps through
+            the split mixers (the same weights stored by spec), each held
+            within 1e-3; the times of both."""
+            t0 = time.perf_counter()
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                   (B, S))).to(dev)
+            model = T.Transformer(cfg, device=dev).init_params(
+                torch.Generator(device=dev).manual_seed(
+                    int(rng.integers(1 << 62))))
+            plain = TL.make_prefill_step(cfg)
+            want = plain(model, {"tokens": tokens})
+            plain_ms = cuda_ms(lambda: plain(model, {"tokens": tokens}), 1, 3)
+            dense = T.init_cache(cfg, B, SHARD_DECODE_LEN, torch.float32,
+                                 device=dev)
+            with torch.inference_mode():
+                want_dec = [T.decode_step(model, cfg, dense,
+                                          tokens[:, p:p + 1], p)[0]
+                            for p in range(SHARD_DECODE_STEPS)]
+                dense_ms = cuda_ms(lambda: T.decode_step(
+                    model, cfg, dense, tokens[:, :1], SHARD_DECODE_STEPS),
+                    1, 5)
+            TL.shard_model(model, cfg, mesh)
+            step = TL.shard_prefill_step(cfg, mesh)
+            before = dict(counts)
+            got = counted(lambda: step(model, {"tokens": tokens}))
+            launched = {k: c - before.get(k, 0) for k, c in counts.items()
+                        if c - before.get(k, 0)}
+            err = check_close(f"22a {what} TP prefill vs unsharded", got,
+                              want, 1e-3)
+            ms = cuda_ms(lambda: step(model, {"tokens": tokens}), 1, 3)
+            del got, want
+            cache = T.init_cache(cfg, B, SHARD_DECODE_LEN, torch.float32,
+                                 device=dev, mesh=mesh)
+            worst = 0.0
+            with AS.meshed(("data",), mesh), torch.inference_mode():
+                for p in range(SHARD_DECODE_STEPS):
+                    got = counted(lambda: T.decode_step(
+                        model, cfg, cache, tokens[:, p:p + 1], p,
+                        kv_seq_axis="model")[0])
+                    worst = max(worst, check_close(
+                        f"22a {what} TP decode at pos {p}", got, want_dec[p],
+                        1e-3))
+                tp_dec_ms = cuda_ms(lambda: T.decode_step(
+                    model, cfg, cache, tokens[:, :1], SHARD_DECODE_STEPS,
+                    kv_seq_axis="model"), 1, 5)
+            nxt, _ = TL.shard_decode_step(cfg, mesh)(
+                model, cache, tokens[:, :1], SHARD_DECODE_STEPS)
+            if nxt.shape != (B, 1):
+                raise AssertionError(f"22a {what} shard_decode_step: "
+                                     f"{nxt.shape}")
+            del model, cache, dense, want_dec
+            gc.collect()
+            torch.cuda.empty_cache()
+            row = {"name": f"TP prefill and decode {what} (1, 1) mesh",
+                   "batch": B, "seq": S, "max_abs_err": err,
+                   "decode_max_abs_err": worst, "ms": ms,
+                   "unsharded_ms": plain_ms, "decode_ms": tp_dec_ms,
+                   "dense_decode_ms": dense_ms, "launches": launched,
+                   "card": card}
+            log(f"[tp] 22a {what} through the split mixers: prefill within "
+                f"1e-3 of the unsharded (max |err| {err:.3e}), "
+                f"{SHARD_DECODE_STEPS} decode steps within 1e-3 (max |err| "
+                f"{worst:.3e}); prefill {ms:.2f} ms, unsharded "
+                f"{plain_ms:.2f} ms ({ms / plain_ms:.4f}); a decode step "
+                f"{tp_dec_ms:.3f} ms, dense {dense_ms:.3f} ms; launches on "
+                f"the prefill {json.dumps(launched)} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            return row
+
+        def fake_rank0(cfg, m: int) -> tuple:
+            """Rank 0 of a (1, m) mesh on a fake group: ``shard_prefill_step``
+            of ``cfg``'s prefill, timed.  Returns (ms, its launches)."""
+            with D.fake_world(m):
+                mesh = make_host_mesh(1, m, device=dev)
+                batch = {"tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab, (B, S))).to(dev)}
+                model = T.Transformer(cfg, device=dev).init_params(
+                    torch.Generator(device=dev).manual_seed(
+                        int(rng.integers(1 << 62))))
+                TL.shard_model(model, cfg, mesh)
+                gc.collect()
+                torch.cuda.empty_cache()
+                step = TL.shard_prefill_step(cfg, mesh)
+                ops.reset_launch_counts()
+                step(model, batch)
+                torch.cuda.synchronize()
+                fake = {k: c for k, c in ops.launch_counts().items() if c}
+                fake_ms = cuda_ms(lambda: step(model, batch), 1, 3)
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+            return fake_ms, fake
 
         if dev.type == "cuda":
             torch.cuda.set_device(torch.cuda.current_device())
@@ -3811,28 +3923,26 @@ def tp_phases(args, dev, card: str, path_counts: dict) -> list:
             del model, dense, cache, want
             gc.collect()
             torch.cuda.empty_cache()
+            # jamba's period and xlstm-125m through the split mixers
+            for cfg, what in recurrent:
+                row = recurrent_held(cfg, what, mesh)
+                if cfg.name == HYBRID_ARCH:
+                    n_moe = sum(f == "moe" for _, f in cfg.pattern)
+                    n_attn = sum(mx == "attn" for mx, _ in cfg.pattern)
+                    want = {"flash_attention_kernel": n_attn,
+                            "fractal_histogram": n_moe,
+                            "fractal_rank_kernel": n_moe}
+                    if {k: row["launches"].get(k, 0) for k in want} != want:
+                        raise AssertionError(
+                            f"22a {what} TP prefill launched "
+                            f"{row['launches']}, expected {want}")
+                e2e.append(row)
         path_counts["tensor_parallel"] = counts
 
         # -- b. one card of a 4-way TP group, on a fake group --------------
         t0 = time.perf_counter()
         m = TP_FAKE_MODEL
-        with D.fake_world(m):
-            mesh = make_host_mesh(1, m, device=dev)
-            batch = {"tokens": torch.from_numpy(rng.integers(
-                0, llama.vocab, (B, S))).to(dev)}
-            model = T.Transformer(llama, device=dev).init_params(
-                torch.Generator(device=dev).manual_seed(
-                    int(rng.integers(1 << 62))))
-            TL.shard_model(model, llama, mesh)
-            step = TL.shard_prefill_step(llama, mesh)
-            ops.reset_launch_counts()
-            step(model, batch)
-            torch.cuda.synchronize()
-            fake = {k: c for k, c in ops.launch_counts().items() if c}
-            fake_ms = cuda_ms(lambda: step(model, batch), 1, 3)
-            del model
-            gc.collect()
-            torch.cuda.empty_cache()
+        fake_ms, fake = fake_rank0(llama, m)
         shape = (B, S, llama.n_heads // m, llama.resolved_head_dim)
         q, k, v = (torch.from_numpy(rng.standard_normal(
             shape, np.float32)).to(dev) for _ in range(3))
@@ -3859,6 +3969,21 @@ def tp_phases(args, dev, card: str, path_counts: dict) -> list:
             f"counted on a path); K5 at {shape} within 1e-4 of its plain "
             f"version (max |err| {k5_err:.3e}), {k5_ms:.3f} ms "
             f"({time.perf_counter() - t0:.1f} s)")
+        unsharded_of = {row["name"]: row.get("unsharded_ms") for row in e2e}
+        for cfg, what in recurrent:
+            t0 = time.perf_counter()
+            fake_ms, fake = fake_rank0(cfg, m)
+            unsharded = unsharded_of[
+                f"TP prefill and decode {what} (1, 1) mesh"]
+            e2e.append({"name": f"TP prefill {what}, rank 0 of a (1, {m}) "
+                                f"fake group (timing only)",
+                        "ms": fake_ms, "unsharded_ms": unsharded,
+                        "launches": fake, "card": card})
+            log(f"[tp] 22b {what} prefill {B} x {S} as rank 0 of a (1, {m}) "
+                f"mesh computes it: {fake_ms:.2f} ms against the unsharded "
+                f"{unsharded:.2f} ms ({fake_ms / unsharded:.4f}); TIMING "
+                f"ONLY; launches {json.dumps(fake)} (not counted on a path) "
+                f"({time.perf_counter() - t0:.1f} s)")
 
         # -- c. the dry-run cells, one child process each -------------------
         # (after a-b: four CPU-bound children would slow their host side)

@@ -15,14 +15,18 @@ same process-global pair, set by the step factories
 
 When unset (one rank, no mesh) everything here is the identity.
 
-The dense sublayers (attention, cross-attention, the MLP) run on this
-rank's `model` slice, as Megatron-LM splits them: their weights stay
-split over `model` (:func:`gathered` leaves the names a module's
+Every layer the reference splits over `model` runs on this rank's
+`model` slice, as Megatron-LM splits it: attention, cross-attention, the
+MLP, mamba and the mLSTM and sLSTM mixers (their modules' weights stay
+split over `model`: :func:`gathered` leaves the names a module's
 ``tp_weights()`` gives; :func:`fsdp_gather` gathers them over the batch
-axes only), column-parallel products take their input through
-:func:`tp_copy` (Megatron's ``f``) and row-parallel ones give their
-output through :func:`tp_sum` (``g``).  Every other weight is gathered
-whole where it runs and its compute is replicated over `model`.
+axes only), and the embedding, the head and the loss on this rank's
+vocab slice (:mod:`.transformer`, :mod:`repro_torch.train_lib`).
+Column-parallel products take their input through :func:`tp_copy`
+(Megatron's ``f``) and row-parallel ones give their output through
+:func:`tp_sum` (``g``).  The rest (norms, a sublayer whose heads or
+vocab do not split, the MoE router) is gathered whole where it runs and
+computed replicated over `model`.
 
 The collectives are :class:`torch.autograd.Function`\\ s with explicit
 gradients; each data rank's loss is the mean over its own batch shard:
@@ -36,9 +40,12 @@ gradients; each data rank's loss is the mean over its own batch shard:
   computed the same batch (:class:`_GatherSlice`);
 * inside a sublayer split over `model`, each rank computes its own part:
   an activation all-gathered over `model` reduce-scatters its gradient,
-  summed (:class:`_GatherScatter` with SUM), and ``f`` sums the gradient
-  of the sublayer's input (:class:`_GradSum`), ``g`` sums the output
-  (:class:`_Sum`).
+  summed (:class:`_GatherScatter` with SUM), or, where what follows is
+  replicated over `model`, keeps this rank's slice of it
+  (:class:`_GatherSlice`); an activation moved between the ranks by an
+  all-to-all moves its gradient back by the inverse one
+  (:class:`_AllToAll`); ``f`` sums the gradient of the sublayer's input
+  (:class:`_GradSum`), ``g`` sums the output (:class:`_Sum`).
 
 Over a one-rank group neither the collective nor its Function runs
 (``x`` passes as it is), as the reference's program has no collective
@@ -58,10 +65,15 @@ from repro_torch import sharding as SH
 __all__ = ["set_batch_axes", "meshed", "get_batch_axes", "get_mesh",
            "constrain_batch", "fsdp_gather", "gather_param", "gathered",
            "sum_over", "grad_sum_over", "tp_copy", "tp_sum",
-           "gather_model", "model_rank"]
+           "gather_model", "all_to_all_model", "model_group", "model_rank",
+           "model_size", "mesh_sizes", "tp_names"]
 
 _BATCH_AXES: Optional[tuple] = None
 _MESH = None
+# what the model reads of the mesh set, read once a mesh (a decode step
+# asks a hundred times): its axis sizes, `model` coordinate and groups,
+# and each module's tp_weights()
+_CACHE: dict = {}
 
 
 def set_batch_axes(axes: Optional[tuple], mesh=None):
@@ -71,6 +83,7 @@ def set_batch_axes(axes: Optional[tuple], mesh=None):
     global _BATCH_AXES, _MESH
     _BATCH_AXES = tuple(axes) if axes else None
     _MESH = mesh
+    _CACHE.clear()
 
 
 @contextlib.contextmanager
@@ -112,7 +125,7 @@ def fsdp_gather(w, tp_dim: int):
             SH.names_model(spec, d) for d in range(len(spec))):
         raise ValueError(f"fsdp_gather: spec {spec} splits `model` off "
                          f"dim {tp_dim}")
-    return gather_param(w, spec, tuple(a for a in SH.axis_sizes(_MESH)
+    return gather_param(w, spec, tuple(a for a in mesh_sizes()
                                        if a != "model"))
 
 
@@ -148,6 +161,22 @@ class _GatherSlice(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The uneven all-to-all along ``dim`` over the group
+    (:func:`~repro_torch.sharding.all_to_all_dim`); backward: the
+    inverse all-to-all (``send`` and ``recv`` swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, send, recv, group):
+        ctx.dim, ctx.send, ctx.recv, ctx.group = dim, send, recv, group
+        return SH.all_to_all_dim(x, dim, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (SH.all_to_all_dim(g, ctx.dim, ctx.recv, ctx.send, ctx.group),
+                None, None, None, None)
 
 
 class _AvgGrad(torch.autograd.Function):
@@ -204,8 +233,11 @@ def _group(axis):
     """The process group of the mesh's ``axis``; None where it has one
     rank (every collective over it, and its autograd Function, is the
     identity there)."""
-    group = _MESH.get_group(axis)
-    return group if dist.get_world_size(group) > 1 else None
+    key = ("group", axis)
+    if key not in _CACHE:
+        group = _MESH.get_group(axis)
+        _CACHE[key] = group if dist.get_world_size(group) > 1 else None
+    return _CACHE[key]
 
 
 def _groups(axes) -> tuple:
@@ -242,18 +274,65 @@ def tp_sum(x: torch.Tensor):
     return sum_over(x, ("model",))
 
 
-def gather_model(x: torch.Tensor, dim: int):
+def gather_model(x: torch.Tensor, dim: int, replicated: bool = False):
     """This rank's part of an activation concatenated along ``dim`` with
-    the other `model` ranks' (group-rank order); the gradient of the whole
-    reduce-scattered back, summed (each rank's use gives a part)."""
+    the other `model` ranks' (group-rank order).  The gradient of the
+    whole is reduce-scattered back, summed (each rank's use gives a
+    part); with ``replicated`` (what follows is one computation
+    replicated over `model`) this rank keeps its slice of it."""
     group = _group("model")
-    return x if group is None else _GatherScatter.apply(
-        x, dim, group, dist.ReduceOp.SUM)
+    if group is None:
+        return x
+    if replicated:
+        return _GatherSlice.apply(x, dim, group)
+    return _GatherScatter.apply(x, dim, group, dist.ReduceOp.SUM)
+
+
+def all_to_all_model(x: torch.Tensor, dim: int, send, recv):
+    """The uneven all-to-all of ``x`` along ``dim`` over `model`
+    (:func:`~repro_torch.sharding.all_to_all_dim`: ``send[t]`` entries to
+    rank ``t``, ``recv[s]`` from rank ``s``); its gradient moves back by
+    the inverse one."""
+    group = _group("model")
+    return x if group is None else _AllToAll.apply(x, dim, tuple(send),
+                                                   tuple(recv), group)
+
+
+def model_group():
+    """The process group of the mesh's `model` axis; None where no mesh is
+    set or the axis has one rank (nothing to reduce over)."""
+    return None if _MESH is None else _group("model")
 
 
 def model_rank() -> int:
     """This rank's coordinate on the mesh's `model` axis."""
-    return _MESH.get_local_rank("model")
+    if "rank" not in _CACHE:
+        _CACHE["rank"] = _MESH.get_local_rank("model")
+    return _CACHE["rank"]
+
+
+def mesh_sizes() -> dict:
+    """``{axis name: size}`` of the mesh set."""
+    if "sizes" not in _CACHE:
+        _CACHE["sizes"] = dict(SH.axis_sizes(_MESH))
+    return _CACHE["sizes"]
+
+
+def model_size() -> int:
+    """The size of the mesh's `model` axis (1 where it has none)."""
+    return mesh_sizes().get("model", 1)
+
+
+def tp_names(module: torch.nn.Module) -> tuple:
+    """``module.tp_weights()`` (the weights it keeps split over `model`;
+    none for a module without the method), read once a mesh: it depends
+    only on the mesh and on the specs the model is stored by."""
+    if _MESH is None or not hasattr(module, "tp_weights"):
+        return ()
+    key = ("tp", id(module))
+    if key not in _CACHE:
+        _CACHE[key] = module.tp_weights()
+    return _CACHE[key]
 
 
 def gather_param(shard: torch.Tensor, spec: tuple,
@@ -302,8 +381,7 @@ def gathered(module: torch.nn.Module, names: Optional[tuple] = None):
             mods = [m for m in module.modules()
                     if not getattr(m, "gathers_own_weights", False)]
             pairs = [(m, n) for m in mods for n in m._parameters
-                     if n not in (m.tp_weights() if hasattr(
-                         m, "tp_weights") else ())]
+                     if n not in tp_names(m)]
         else:
             pairs = [(module, n) for n in names]
         for m, n in pairs:

@@ -52,8 +52,9 @@ from torch import nn
 from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.act_sharding import (fsdp_gather, gather_model,
-                                             get_mesh, model_rank, tp_copy,
-                                             tp_sum)
+                                             get_mesh, mesh_sizes,
+                                             model_rank, model_size,
+                                             tp_copy, tp_names, tp_sum)
 
 __all__ = ["RMSNorm", "Attention", "MLP", "dense_init", "rms_norm", "rope",
            "flash_attention", "attn_apply", "attn_decode", "mlp_apply",
@@ -210,8 +211,8 @@ class Attention(nn.Module):
         mesh whose `model` size divides ``n_heads``, for a model stored
         by spec with q's and k's columns split over `model`; none
         otherwise (gathered whole, compute replicated)."""
-        mesh = get_mesh()
-        if (mesh is None or not SH.splits_heads(self.cfg.n_heads, mesh)
+        if (get_mesh() is None
+                or not SH.splits_heads(self.cfg.n_heads, mesh_sizes())
                 or not all(SH.names_model(getattr(w, "shard_spec", None), -1)
                            for w in (self.wq, self.wk))):
             return ()
@@ -228,7 +229,7 @@ def _qkv(p: Attention, cfg: ModelConfig, x, kv_x=None, whole: bool = False):
     every head, gathered over `model` (decode)."""
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
-    tp = bool(p.tp_weights())
+    tp = bool(tp_names(p))
     if tp:
         x = tp_copy(x)
         kv_x = None if kv_x is None else tp_copy(kv_x)
@@ -238,7 +239,7 @@ def _qkv(p: Attention, cfg: ModelConfig, x, kv_x=None, whole: bool = False):
     k, v = kv_x @ fsdp_gather(p.wk, -1), kv_x @ fsdp_gather(p.wv, -1)
     pick = None
     if tp:
-        m = SH.model_size(get_mesh())
+        m = model_size()
         if whole or cfg.n_kv_heads % m:
             k, v = gather_model(k, -1), gather_model(v, -1)
             if whole:
@@ -286,7 +287,7 @@ def attn_apply(p: Attention, cfg: ModelConfig, x, *, causal: bool = True,
                               causal=causal and kv_x is None,
                               chunk_q=chunk_q, chunk_kv=chunk_kv)
     out = out.reshape(B, S, -1) @ fsdp_gather(p.wo, 0)
-    return (tp_sum(out) if p.tp_weights() else out), (k, v)
+    return (tp_sum(out) if tp_names(p) else out), (k, v)
 
 
 def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
@@ -366,9 +367,9 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
             dist.all_reduce(o, group=group)
     out = o / torch.clamp(l[..., None], min=1e-30)
     out = out.transpose(1, 2).reshape(B, 1, -1).to(x.dtype)
-    if not p.tp_weights():
+    if not tp_names(p):
         return out @ fsdp_gather(p.wo, 0), cache_k, cache_v
-    width = out.shape[-1] // SH.model_size(get_mesh())
+    width = out.shape[-1] // model_size()
     out = out.narrow(-1, model_rank() * width, width)
     return tp_sum(out @ fsdp_gather(p.wo, 0)), cache_k, cache_v
 
@@ -408,7 +409,7 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, cfg: ModelConfig, x):
-    tp = bool(p.tp_weights())
+    tp = bool(tp_names(p))
     if tp:
         x = tp_copy(x)
     h = x @ fsdp_gather(p.wi, -1)

@@ -23,10 +23,16 @@ Under a mesh (the sharded train, prefill and decode steps of
 :mod:`repro_torch.train_lib`) the model's parameters are this rank's
 shards, and each block (and the embedding, the final norms, the head)
 is gathered where it runs (:func:`.act_sharding.gathered`): inside the
-remat checkpoint, so the recompute gathers again.  The dense sublayers
-keep their `model` split and run on this rank's slice
-(:mod:`.layers`); ``init_cache(mesh=)`` gives this rank's block of the
-decode cache as :func:`repro_torch.sharding.cache_specs` lays it out.
+remat checkpoint, so the recompute gathers again.  The sublayers the
+reference splits over `model` keep their split and run on this rank's
+slice (attention and the MLP, :mod:`.layers`; mamba, :mod:`.ssm`; the
+mLSTM and sLSTM, :mod:`.xlstm`); ``init_cache(mesh=)`` gives this rank's
+block of the decode cache as :func:`repro_torch.sharding.cache_specs`
+lays it out.  Where the stored vocab splits over `model` (the
+reference's ``_fit_spec`` keeps a vocab `model` does not divide whole),
+the embedding is a masked lookup in this rank's rows summed over
+`model`, and :func:`head_logits` gives this rank's vocab columns of the
+logits, as the reference's output splits them.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from repro_torch.models import xlstm as X
 from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Block", "Encoder", "Transformer", "forward", "forward_hidden",
-           "unembed", "gathered_head", "init_cache", "encode_cross_kv",
+           "unembed", "gathered_head", "vocab_start", "local_head",
+           "embed_tokens", "head_logits", "init_cache", "encode_cross_kv",
            "decode_step"]
 
 _ENCODER_PATTERN = (("attn", "mlp"),)
@@ -110,7 +117,7 @@ _MIXERS = {
     "mamba": _recurrent("mamba", S.Mamba, S.mamba_apply, S.mamba_decode,
                         S.mamba_init_cache),
     "mlstm": _recurrent("mlstm", X.MLSTM, X.mlstm_apply,
-                        _one_token(X.mlstm_cell), X.mlstm_init_state),
+                        _one_token(X.mlstm_decode), X.mlstm_init_state),
     "slstm": _recurrent("slstm", X.SLSTM, X.slstm_apply,
                         _one_token(X.slstm_cell), X.slstm_init_state),
 }
@@ -302,13 +309,64 @@ def gathered_head(model: Transformer, cfg: ModelConfig):
                        else ("lm_head",))
 
 
+def _splits_vocab(w, dim: int) -> bool:
+    """Whether the mesh is set and ``w`` is stored with its vocab ``dim``
+    split over `model`."""
+    return AS.get_mesh() is not None and SH.names_model(
+        getattr(w, "shard_spec", None), dim)
+
+
+def vocab_start(model: Transformer, cfg: ModelConfig) -> Optional[int]:
+    """Where the head runs on this rank's vocab slice (a mesh set, the
+    stored head's vocab split over `model`): the vocab index of this
+    rank's first column; None where the head is whole."""
+    tied = cfg.tie_embeddings
+    w = model.embed if tied else model.lm_head
+    if not _splits_vocab(w, 0 if tied else -1):
+        return None
+    return AS.model_rank() * (cfg.vocab // AS.model_size())
+
+
+def local_head(model: Transformer, cfg: ModelConfig):
+    """This rank's (D, V / m) vocab columns of the head (where
+    :func:`vocab_start` is not None), gathered over the batch axes only:
+    the tied embedding's rows transposed, or ``lm_head``'s columns."""
+    if cfg.tie_embeddings:
+        return AS.fsdp_gather(model.embed, 0).T
+    return AS.fsdp_gather(model.lm_head, -1)
+
+
+def head_logits(model: Transformer, cfg: ModelConfig, x):
+    """``x @ unembed``: (..., V), or where the head runs on this rank's
+    vocab slice its (..., V / m) columns (a column-parallel product, x
+    through :func:`.act_sharding.tp_copy`)."""
+    if vocab_start(model, cfg) is None:
+        with gathered_head(model, cfg):
+            return x @ unembed(model, cfg)
+    return AS.tp_copy(x) @ local_head(model, cfg)
+
+
+def embed_tokens(model: Transformer, tokens):
+    """The tokens' embeddings (..., D).  Where the stored table's vocab
+    splits over `model`: a lookup in this rank's rows (gathered over the
+    batch axes only), the tokens outside them zero, summed over `model`
+    (one rank adds each row, the others zeros)."""
+    if not _splits_vocab(model.embed, 0):
+        with AS.gathered(model, ("embed",)):
+            return model.embed[tokens]
+    w = AS.fsdp_gather(model.embed, 0)
+    local = tokens - AS.model_rank() * w.shape[0]
+    inside = (local >= 0) & (local < w.shape[0])
+    x = torch.where(inside[..., None], w[torch.where(inside, local, 0)], 0)
+    return AS.tp_sum(x)
+
+
 def forward_hidden(model: Transformer, cfg: ModelConfig, tokens,
                    frontend_embeds=None):
     """Final hidden states (pre-unembedding).  Returns (h (B,S,D), aux);
     aux is the MoE load-balancing loss summed over the layers in fp32,
     zero for models without MoE."""
-    with AS.gathered(model, ("embed",)):
-        x = model.embed[tokens]
+    x = embed_tokens(model, tokens)
     enc_out = None
     if cfg.encoder_layers and frontend_embeds is not None:
         enc_out = _encode(model.encoder, cfg,
@@ -335,10 +393,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens,
       * patch (vlm): (B, P, D) stub patch embeddings, prepended to the
         sequence and cut off after the final norm.
 
-    Returns (logits (B, S, V), aux_loss)."""
+    Returns (logits (B, S, V), aux_loss); on this rank's vocab slice
+    (:func:`head_logits`) the logits are its (B, S, V / m) columns."""
     x, aux = forward_hidden(model, cfg, tokens, frontend_embeds)
-    with gathered_head(model, cfg):
-        return x @ unembed(model, cfg), aux
+    return head_logits(model, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -428,17 +486,16 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: list, token,
     :func:`encode_cross_kv`) enables the enc-dec path.  MoE blocks route
     this step's B tokens alone, and their aux loss is dropped.
     ``kv_seq_axis``: the mesh axis, or axes, the attention caches' sequence
-    is split over (:func:`.layers.attn_decode`)."""
-    with AS.gathered(model, ("embed",)):
-        x = model.embed[token]
+    is split over (:func:`.layers.attn_decode`).  On this rank's vocab
+    slice the logits are its (B, 1, V / m) columns."""
+    x = embed_tokens(model, token)
     for layer, (block, c) in enumerate(zip(model.blocks, cache)):
         with AS.gathered(block):
             x = _decode_block(block, cfg, x, c, pos, kv_seq_axis,
                               None if cross_kv is None else cross_kv[layer])
     with AS.gathered(model.final_norm):
         x = L.rms_norm(x, model.final_norm.scale, cfg.rms_eps)
-    with gathered_head(model, cfg):
-        return x @ unembed(model, cfg), cache
+    return head_logits(model, cfg, x), cache
 
 
 def _decode_block(block: Block, cfg: ModelConfig, x, c: dict, pos,

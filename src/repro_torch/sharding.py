@@ -41,7 +41,8 @@ from repro_torch.configs.base import ModelConfig
 __all__ = ["RULES", "param_specs", "batch_axes", "dp_size", "data_specs",
            "cache_specs", "axis_sizes", "entry_axes", "local_shard",
            "gather_full", "all_gather_dim", "reduce_scatter_dim",
-           "all_reduce", "model_size", "splits_heads", "names_model"]
+           "all_to_all_dim", "all_reduce", "model_size", "splits_heads",
+           "names_model"]
 
 _FSDP = "data"
 _TP = "model"
@@ -331,6 +332,23 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
     out = front.new_empty((front.shape[0] // dist.get_world_size(group),)
                           + front.shape[1:])
     _reduce_scatter_single(out, front, op=op, group=group)
+    return out.movedim(0, dim)
+
+
+def all_to_all_dim(x: torch.Tensor, dim: int, send, recv,
+                   group) -> torch.Tensor:
+    """The uneven all-to-all along ``dim``: the first ``send[0]`` entries
+    of ``x`` along ``dim`` go to group rank 0, the next ``send[1]`` to
+    rank 1, and so on; returns what the ranks sent here, ``recv[s]``
+    entries from rank ``s``, concatenated along ``dim`` in group-rank
+    order (``x`` itself over a one-rank group).  Its inverse swaps
+    ``send`` and ``recv``."""
+    if dist.get_world_size(group) == 1:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((sum(recv),) + front.shape[1:])
+    dist.all_to_all_single(out, front, output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group)
     return out.movedim(0, dim)
 
 

@@ -64,11 +64,65 @@ def _chunk_nll(h, head, lab):
     return ((lse - tgt) * valid).sum(), valid.sum()
 
 
-def chunked_ce(hidden, head, labels, chunk: int = LOSS_CHUNK):
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each token's NLL from logits split over the vocab (this rank's
+    columns from ``start``), as Megatron-LM's
+    ``_VocabParallelCrossEntropy``: forward the local max, all-reduced
+    MAX; the local sum of exp below it, all-reduced SUM; the target's
+    logit where this rank holds it (zero elsewhere), all-reduced SUM.
+    Backward: this rank's columns of softmax - one-hot, no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, lab, start, group):
+        ctx.dtype = logits.dtype
+        logits = logits.float()
+        m = logits.amax(dim=-1)
+        SH.all_reduce(m, group, dist.ReduceOp.MAX)
+        e = torch.exp(logits - m[..., None])
+        s = e.sum(dim=-1)
+        SH.all_reduce(s, group)
+        local = lab.long() - start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(inside, local, 0)
+        tgt = torch.where(inside, torch.gather(logits, -1, local[..., None])[
+            ..., 0], 0.0)
+        SH.all_reduce(tgt, group)
+        ctx.save_for_backward(e, s, local, inside)
+        return torch.log(s) + m - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, inside = ctx.saved_tensors
+        grad = e / s[..., None]
+        grad.scatter_add_(-1, local[..., None], -inside.float()[..., None])
+        return (grad * g[..., None]).to(ctx.dtype), None, None, None
+
+
+def _chunk_nll_split(h, head, lab, start: int, group):
+    """:func:`_chunk_nll` on this rank's vocab columns ``head`` (D, V / m)
+    from ``start``, over the `model` group ``group``."""
+    nll = _VocabParallelNLL.apply(h @ head, lab, start, group)
+    valid = (lab >= 0).float()
+    return (nll * valid).sum(), valid.sum()
+
+
+def chunked_ce(hidden, head, labels, chunk: int = LOSS_CHUNK,
+               vocab_start: Optional[int] = None):
     """Cross-entropy without materializing (B, S, V) fp32 logits: one
     sequence chunk at a time, labels padded with -1 and masked.  Under
     grad each chunk runs under :func:`torch.utils.checkpoint.checkpoint`,
-    so backward too holds one chunk's logits at a time."""
+    so backward too holds one chunk's logits at a time, and its recompute
+    issues the forward's collectives again, in the same order on every
+    rank.
+
+    ``vocab_start``: ``head`` is this rank's vocab columns from there,
+    under a mesh whose `model` ranks hold the rest: the cross-entropy is
+    vocab-parallel (:class:`_VocabParallelNLL`); ``hidden`` must come
+    through :func:`~repro_torch.models.act_sharding.tp_copy`.  Over a
+    one-rank `model` group the head is whole and nothing changes."""
+    group = None if vocab_start is None else AS.model_group()
+    nll_fn = _chunk_nll if group is None else (
+        lambda h, w, lab: _chunk_nll_split(h, w, lab, vocab_start, group))
     B, S, D = hidden.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -80,9 +134,9 @@ def chunked_ce(hidden, head, labels, chunk: int = LOSS_CHUNK):
     for lo in range(0, S + pad, chunk):
         args = (hidden[:, lo:lo + chunk], head, labels[:, lo:lo + chunk])
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False)
+            nll, n = checkpoint(nll_fn, *args, use_reentrant=False)
         else:
-            nll, n = _chunk_nll(*args)
+            nll, n = nll_fn(*args)
         tot, cnt = tot + nll, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -92,8 +146,13 @@ def loss_fn(model, cfg: ModelConfig, batch):
     ``AUX_WEIGHT`` times the MoE load-balancing loss."""
     hidden, aux = T.forward_hidden(model, cfg, batch["tokens"],
                                    frontend_embeds=batch.get("frontend"))
-    with T.gathered_head(model, cfg):
-        loss = chunked_ce(hidden, T.unembed(model, cfg), batch["labels"])
+    start = T.vocab_start(model, cfg)
+    if start is None:
+        with T.gathered_head(model, cfg):
+            loss = chunked_ce(hidden, T.unembed(model, cfg), batch["labels"])
+    else:  # the vocab-parallel loss on this rank's columns
+        loss = chunked_ce(AS.tp_copy(hidden), T.local_head(model, cfg),
+                          batch["labels"], vocab_start=start)
     return loss + AUX_WEIGHT * aux, (loss, aux)
 
 
@@ -300,15 +359,16 @@ def shard_train_step(cfg: ModelConfig, oc: O.OptimizerConfig, mesh):
     * ``batch`` is the global batch, the same on every rank: each rank
       takes its slice over the batch axes (which must divide it).
     * The model gathers each block's weights where it runs, inside its
-      remat checkpoint, and the embedding, final norm and head where they
-      are used; attention and the MLP keep their `model` split and run on
-      this rank's slice; the MoE branch gathers its expert weights and
-      router over `data` itself (:mod:`repro_torch.models.act_sharding`).
-    * The other compute (embedding, head, mamba and xLSTM mixers, a
-      sublayer whose heads do not split) is replicated over `model`; the
-      gathers' backward reduces each gradient to this rank's shard,
-      averaged over `data` (each data rank's loss is the mean over its
-      own shard).
+      remat checkpoint, and the final norm where it is used; attention,
+      the MLP, mamba and the xLSTM mixers keep their `model` split and run
+      on this rank's slice, and so do the embedding, the head and the
+      loss on this rank's vocab slice (a vocab-parallel cross-entropy);
+      the MoE branch gathers its expert weights and router over `data`
+      itself (:mod:`repro_torch.models.act_sharding`).
+    * The other compute (norms, a sublayer whose heads or vocab do not
+      split) is replicated over `model`; the gathers' backward reduces
+      each gradient to this rank's shard, averaged over `data` (each data
+      rank's loss is the mean over its own shard).
     * The clip norm counts unique elements; AdamW, elementwise, runs on
       the shards.  ``loss`` and ``aux_loss`` are averaged over the batch
       axes, ``grad_norm`` is the global norm.
@@ -379,10 +439,11 @@ def shard_prefill_step(cfg: ModelConfig, mesh):
     """The reference's ``jit`` of :func:`make_prefill_step` with explicit
     shardings over ``mesh``, SPMD: every rank calls ``step(model, batch) ->
     logits`` on a model stored by :func:`shard_model`, with the global
-    batch; it returns the logits of its batch shard (B / dp, S, V) (a
-    batch the data ranks do not split: all of it).  Attention and the MLP
-    run on the rank's `model` slice; the head is gathered whole, where the
-    reference's output splits the vocab over `model`."""
+    batch; it returns this rank's block of the logits as the reference's
+    output lays them out: its batch shard (B / dp; a batch the data ranks
+    do not split: all of it) and its vocab shard (V / m; the whole vocab
+    where `model` does not divide it).  Every split layer runs on the
+    rank's `model` slice."""
     axes = SH.batch_axes(mesh)
 
     @torch.inference_mode()
@@ -408,7 +469,9 @@ def shard_decode_step(cfg: ModelConfig, mesh):
     split the batch, every axis otherwise (the batch replicated), as
     :func:`~repro_torch.sharding.cache_specs` lays it out.  ``cross_kv``
     (enc-dec) is whole, its batch split as the token's.  Returns this
-    rank's batch shard of the next tokens."""
+    rank's batch shard of the next tokens: over a vocab split over
+    `model`, the largest of the ranks' (max, argmax) gathered over
+    `model` (:func:`_vocab_argmax`)."""
     axes = SH.batch_axes(mesh)
     n_dp = SH.dp_size(mesh)
 
@@ -424,7 +487,25 @@ def shard_decode_step(cfg: ModelConfig, mesh):
             logits, cache = T.decode_step(model, cfg, cache, local, pos,
                                           cross_kv=cross_kv,
                                           kv_seq_axis=kv_axis)
-        nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        return nxt, cache
+            nxt = _vocab_argmax(logits[:, -1:], T.vocab_start(model, cfg))
+        return nxt.to(torch.int32), cache
 
     return decode_step
+
+
+def _vocab_argmax(logits, start: Optional[int]):
+    """The vocab index of the largest of ``logits`` (..., V'), this rank's
+    vocab columns from ``start`` (None: the whole vocab).  Split over
+    `model`: each rank's (max, argmax) gathered over `model` (one gather
+    of the pairs in fp64, where both are exact) and the largest kept; on
+    a tie the lowest vocab index, as ``torch.argmax`` and ``jnp.argmax``
+    give (the lowest rank's, and within a rank the first)."""
+    idx = torch.argmax(logits, dim=-1)
+    group = None if start is None else AS.model_group()
+    if group is None:
+        return idx
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    pair = torch.stack([val.double(), (idx + start).double()], dim=-1)
+    every = SH.all_gather_dim(pair[None], 0, group)  # (m, ..., 2)
+    best = torch.argmax(every[..., 0], dim=0)
+    return torch.gather(every[..., 1], 0, best[None])[0].long()

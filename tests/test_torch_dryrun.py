@@ -8,10 +8,13 @@
   ``torch.distributed`` state, so no test worker holds it), smoke
   llama3.2-1b at 16 heads (KV heads 4: the KV-gather path, as the full
   config's 8 on 16) and two layers on a fake 16 x 16 group:
-  - prefill: attention and MLP FLOPs of rank 0 are the one-rank
+  - prefill: attention, MLP and head FLOPs of rank 0 are the one-rank
     program's / (data * model), exactly; ``argument_bytes`` is the sum of
     the local shards of ``param_specs`` and of the batch shard; the
     collectives by kind are the analytic count per layer;
+  - train (``train_4k`` at the same sizes): the loss's FLOPs (the head's
+    product in ``chunked_ce``) of rank 0 are the one-rank loss's /
+    (data * model), exactly;
   - decode (the serving policy: weights over `model` only): the
     collectives by kind per layer;
 * the full-size llama3.2-1b ``train_4k`` cell completes with the
@@ -80,6 +83,7 @@ _SCRIPT = textwrap.dedent("""
     import torch
     sys.path.insert(0, "tests")
     from test_torch_dryrun import ARCH, _overrides
+    from repro_torch import train_lib as TL
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.comm_stats import CommStats
     from repro_torch.models import layers as L, transformer as T
@@ -88,8 +92,8 @@ _SCRIPT = textwrap.dedent("""
 
     flops = {}
 
-    def scoped(name):
-        fn = getattr(L, name)
+    def scoped(module, name):
+        fn = getattr(module, name)
 
         def run(*a, **kw):
             inner = CommStats()
@@ -97,21 +101,28 @@ _SCRIPT = textwrap.dedent("""
                 out = fn(*a, **kw)
             flops[name] = flops.get(name, 0) + inner.flops
             return out
-        setattr(L, name, run)
+        setattr(module, name, run)
 
-    for name in ("attn_apply", "mlp_apply"):
-        scoped(name)
+    for module, name in ((L, "attn_apply"), (L, "mlp_apply"),
+                         (T, "head_logits"), (TL, "chunked_ce")):
+        scoped(module, name)
     over = _overrides()
     out = {"prefill": D.dry_run_cell(ARCH, "prefill_32k", False,
-                                     overrides=over),
-           "tp_flops": dict(flops)}
+                                     overrides=over)}
+    out["tp_flops"] = dict(flops)
+    flops.clear()
+    out["train"] = D.dry_run_cell(ARCH, "train_4k", False, overrides=over)
+    out["tp_flops"]["chunked_ce"] = flops.pop("chunked_ce")
     flops.clear()
     cfg = dataclasses.replace(get_config(ARCH), **over)
     model = T.Transformer(cfg, device="meta", dtype=D.PARAM_DTYPE)
     with torch.inference_mode():
         T.forward(model, cfg, D.input_specs(ARCH, "prefill_32k",
                                             cfg)["tokens"])
-    out["one_flops"] = dict(flops)
+        out["one_flops"] = dict(flops)
+        flops.clear()
+        TL.loss_fn(model, cfg, D.input_specs(ARCH, "train_4k", cfg))
+    out["one_flops"]["chunked_ce"] = flops.pop("chunked_ce")
     out["decode"] = D.dry_run_cell(ARCH, "decode_32k", False, overrides=over)
     out["train_full"] = D.dry_run_cell(ARCH, "train_4k", False)
     json.dump(out, sys.stdout)
@@ -137,6 +148,17 @@ def test_dense_flops_split_over_data_and_model(cells):
         assert cells["tp_flops"][name] * 256 == cells["one_flops"][name], name
 
 
+def test_head_and_loss_flops_split_over_data_and_model(cells):
+    """Rank 0's head FLOPs (prefill: the logits) and loss FLOPs (train:
+    ``chunked_ce``'s forward, the tied head's product a chunk) are the
+    one-rank program's over data * model = 256, exactly: the tokens split
+    over `data`, the vocab over `model` (the head no longer whole on every
+    `model` rank)."""
+    for name in ("head_logits", "chunked_ce"):
+        assert cells["one_flops"][name] > 0
+        assert cells["tp_flops"][name] * 256 == cells["one_flops"][name], name
+
+
 def test_argument_bytes_are_the_local_shards(cells):
     cfg = dataclasses.replace(get_config(ARCH), **_overrides())
     meta = T.Transformer(cfg, device="meta", dtype=D.PARAM_DTYPE)
@@ -156,19 +178,24 @@ def _counts(res) -> dict:
 def test_prefill_collectives_per_layer(cells):
     """Per layer: wq, wk, wv, wo, wi, wg, wd gathered over `data` (7),
     k and v over `model` (4 KV heads on 16 ranks: 2); one all-reduce
-    over `model` after wo and one after wd.  The tied embedding is
-    gathered whole (both axes) for the lookup and again for the head."""
-    assert _counts(cells["prefill"]) == {"all-gather": 9 * LAYERS + 4,
-                                         "all-reduce": 2 * LAYERS}
+    over `model` after wo and one after wd.  The tied embedding keeps its
+    vocab split over `model`: gathered over `data` only for the lookup
+    (1), whose masked rows are summed over `model` (1 all-reduce), and
+    again for the head (1), which gives this rank's vocab columns."""
+    assert _counts(cells["prefill"]) == {"all-gather": 9 * LAYERS + 2,
+                                         "all-reduce": 2 * LAYERS + 1}
 
 
 def test_decode_collectives_per_layer(cells):
     """The serving policy stores the weights over `model` only: per layer
     the new token's q, k, v gathered over `model` (3), split-KV's MAX and
-    two SUMs over `model` (3), the sums after wo and wd (2); the tied
-    embedding gathered over `model` twice."""
-    assert _counts(cells["decode"]) == {"all-gather": 3 * LAYERS + 2,
-                                        "all-reduce": 5 * LAYERS}
+    two SUMs over `model` (3), the sums after wo and wd (2).  The tied
+    embedding keeps its vocab split and needs no gather: the lookup's
+    masked rows summed over `model` (1 all-reduce); the head gives this
+    rank's vocab columns, whose (max, argmax) pairs are gathered over
+    `model` for the next token (1 all-gather)."""
+    assert _counts(cells["decode"]) == {"all-gather": 3 * LAYERS + 1,
+                                        "all-reduce": 5 * LAYERS + 1}
 
 
 def test_full_size_train_cell_completes(cells):

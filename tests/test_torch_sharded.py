@@ -35,17 +35,26 @@ workers, and the train driver under ``torch.distributed.run`` on a
   reference's and of its sequential application;
 * the driver restarts from its checkpoint and its losses equal the
   one-rank driver's;
-* tensor parallelism on the (2, 2) mesh: ``shard_prefill_step`` logits
-  and ``T.decode_step`` logits over four positions (B = 2: the cache's
-  sequence over `model`; for llama also B = 1: over both axes) within
-  1e-5 of the reference's ``make_prefill_step`` / ``decode_step`` on the
-  same weights, for smoke llama3.2-1b and whisper-small (cross-attention on
-  the slice), llama with ``n_kv_heads = 1`` (k and v gathered over
-  `model`) and with ``n_heads = 3`` (the layer gathered whole); the
-  cache gathered by ``cache_specs`` and ``shard_decode_step``'s next
-  tokens equal the reference's; the last three cases' gradients, gathered,
-  within rtol 1e-4 / atol 1e-5 of the unsharded ones; each rank's q heads
-  and product widths are its `model` slice's.
+* tensor parallelism on the (2, 2) mesh: each rank's block of the
+  ``shard_prefill_step`` logits and of the ``T.decode_step`` logits over
+  four positions (B = 2: the cache's sequence over `model`; for llama
+  also B = 1: over both axes), its batch shard and its vocab shard,
+  within 1e-5 of the same block of the reference's ``make_prefill_step``
+  / ``decode_step`` on the same weights, for smoke llama3.2-1b,
+  whisper-small at its published vocab of 51,865 (cross-attention on the
+  slice; the vocab, which `model` does not divide, whole), llama with
+  ``n_kv_heads = 1`` (k and v gathered over `model`) and with
+  ``n_heads = 3`` (the layer gathered whole), jamba (mamba on the slice,
+  capacity_factor = E) and xlstm (the mLSTM and sLSTM on the slice); the
+  first layer's cache gathered by ``cache_specs`` and
+  ``shard_decode_step``'s next tokens equal the reference's; every case's
+  but llama's gradients, gathered, within rtol 1e-4 / atol 1e-5 of the
+  unsharded ones (jamba's and xlstm's logits and gradients within the
+  2e-4 their families are held to against the reference: the rounding
+  of their recurrences, see ``TP_TOL``); each rank's q
+  heads, product widths, mamba channels and xLSTM heads and units are
+  its `model` slice's; ``shard_decode_step`` breaks an argmax tie across
+  the two vocab shards to the lower index.
 
 The (1, 1) mesh runs in this process, on a one-rank gloo group.
 """
@@ -79,7 +88,9 @@ from repro_torch.launch import train as train_driver
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import act_sharding as AS
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 from repro_torch.models.convert import params_from_jax
 from repro_torch.pipeline import gpipe_apply
 
@@ -89,13 +100,40 @@ RTOL, ATOL = 1e-4, 1e-5
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 16, 3
 KV_S, KV_POS = 64, 37  # 4 shards of 16 positions: pos 37 is rank 2's 5th
 PIPE = dict(S=4, M=6, mb=2, D=16)
-TP_CASES = {"llama": (LLAMA, {}), "whisper": ("whisper-small", {}),
+# whisper at its published vocab, which 2 does not divide: its embedding
+# and head stay whole, as the reference's _fit_spec keeps them
+TP_CASES = {"llama": (LLAMA, {}),
+            "whisper": ("whisper-small", {"vocab": 51865}),
             "kv1": (LLAMA, {"n_kv_heads": 1}),
-            "h3": (LLAMA, {"n_heads": 3, "n_kv_heads": 1})}
+            "h3": (LLAMA, {"n_heads": 3, "n_kv_heads": 1}),
+            "jamba": ("jamba-v0.1-52b", {}), "xlstm": ("xlstm-125m", {})}
 TP_B, TP_S, TP_FRAMES, TP_LEN, TP_STEPS = 2, 16, 12, 8, 4
 # decode batches: 2 splits the cache's sequence over `model`, 1 over both
 # axes (the batch replicated)
 TP_BATCHES = {case: (2, 1) if case == "llama" else (2,) for case in TP_CASES}
+# the recurrent families within the 2e-4 they are held to against the
+# reference (test_torch_families, test_torch_ssm, test_torch_xlstm): their
+# unsharded logits are themselves 2.7e-5 (jamba) and 6.9e-6 (xlstm) off
+# the reference's, jamba's unsharded fp32 gradients 3e-5 off a float64
+# run (by norm, in the first layer), and the split adds rounding of the
+# same order through their recurrences; 1e-5 for the others
+TP_TOL = {"jamba": 2e-4, "xlstm": 2e-4}
+# the tie of shard_decode_step's argmax: an untied smoke llama whose head
+# is zero but for +e_0 at vocab 5 and 135 and -e_0 at 9 and 130 (each pair
+# across the two shards of 128), and whose final norm keeps only x_0
+TIE_COLS = {5: 1.0, 135: 1.0, 9: -1.0, 130: -1.0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch ops: the suite runs
+    several test processes on the host's cores, where torch's default
+    thread pool waits on busy cores (a smoke jamba gradient took 9.4 s
+    on 8 threads against 0.15 s on one, beside six busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfgs(arch):
@@ -109,11 +147,43 @@ def _cfgs(arch):
     return cfg, jcfg
 
 
+def _at_capacity_e(cfg):
+    """An MoE config at capacity_factor = E (per-shard capacity drops
+    nothing); others as they are."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+
 def _tp_cfgs(case):
-    """Smoke configs of a tensor-parallel case, overrides applied."""
+    """Smoke configs of a tensor-parallel case, overrides applied, MoE at
+    capacity_factor = E."""
     arch, over = TP_CASES[case]
-    return (dataclasses.replace(smoke_config(get_config(arch)), **over),
-            dataclasses.replace(jsmoke_config(jget_config(arch)), **over))
+    return (_at_capacity_e(dataclasses.replace(
+                smoke_config(get_config(arch)), **over)),
+            _at_capacity_e(dataclasses.replace(
+                jsmoke_config(jget_config(arch)), **over)))
+
+
+def _flat(tree: dict, pre: str = "") -> dict:
+    """``{"a/b": leaf}`` of a nested dict (a decode cache's layer)."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{pre}{k}/") if isinstance(v, dict)
+                   else {pre + k: v})
+    return out
+
+
+def _block(x, rank: int, vocab_split: bool):
+    """Rank ``rank``'s block of whole logits (B, S, V) on the (2, 2) mesh
+    (ranks row-major over (data, model)): its half of the batch, and its
+    half of the vocab where ``vocab_split``."""
+    d, m = divmod(rank, 2)
+    x = x[d * x.shape[0] // 2:(d + 1) * x.shape[0] // 2]
+    if vocab_split:
+        x = x[..., m * x.shape[-1] // 2:(m + 1) * x.shape[-1] // 2]
+    return x
 
 
 def _batch(tok) -> dict:
@@ -264,8 +334,17 @@ _REF_TP_SCRIPT = textwrap.dedent("""
     with open(os.path.join(out_dir, "in.pkl"), "rb") as f:
         inp = pickle.load(f)
     out = {}
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            yield from (flat(v, f"{pre}{k}/") if isinstance(v, dict)
+                        else [(pre + k, v)])
+
     for case, (arch, over) in TP_CASES.items():
         cfg = dataclasses.replace(smoke_config(get_config(arch)), **over)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
         params = jax.tree.map(jnp.asarray, inp["tp_params"][case])
         batch = {"tokens": jnp.asarray(inp["tp_tokens"])}
         frames = jnp.asarray(inp["tp_frames"])
@@ -275,8 +354,6 @@ _REF_TP_SCRIPT = textwrap.dedent("""
             jax.jit(TL.make_prefill_step(cfg))(params, batch))
         decode = jax.jit(lambda p, c, t, pos, x: T.decode_step(
             p, cfg, c, t, pos, cross_kv=x))
-        greedy = jax.jit(lambda p, c, t, pos, x: TL.make_decode_step(cfg)(
-            p, c, t, pos, cross_kv=x))
         for B in TP_BATCHES[case]:
             cache = T.init_cache(cfg, B, TP_LEN, jnp.float32)
             cross = (T.encode_cross_kv(params, cfg, frames[:B])[0]
@@ -286,11 +363,15 @@ _REF_TP_SCRIPT = textwrap.dedent("""
                 logits, cache = decode(params, cache, tok[:, pos:pos + 1],
                                        pos, cross)
                 out[f"tp/{case}/decode/{B}/{pos}"] = np.asarray(logits)
-            nxt, cache = greedy(params, cache,
-                                tok[:, TP_STEPS:TP_STEPS + 1], TP_STEPS,
-                                cross)
-            out[f"tp/{case}/next/{B}"] = np.asarray(nxt)
-            out[f"tp/{case}/cache_k/{B}"] = np.asarray(cache["b0"]["k"][0])
+            # make_decode_step's next token: the argmax of decode_step's
+            # logits (one compile of the step, not two)
+            logits, cache = decode(params, cache,
+                                   tok[:, TP_STEPS:TP_STEPS + 1], TP_STEPS,
+                                   cross)
+            out[f"tp/{case}/next/{B}"] = np.asarray(
+                jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32))
+            for key, leaf in flat(cache["b0"]):
+                out[f"tp/{case}/cache/{B}/{key}"] = np.asarray(leaf[0])
     np.savez(os.path.join(out_dir, "ref_tp.npz"), **out)
 """).replace("TP_CASES", repr(TP_CASES)).replace(
     "TP_BATCHES", repr(TP_BATCHES)).replace("TP_LEN", str(TP_LEN)).replace(
@@ -358,7 +439,7 @@ def _worker(rank: int, out_dir: str) -> None:
             out["moe/calls"] = np.array([calls.get("fractal_histogram", 0),
                                          calls.get("fractal_rank_kernel", 0)])
             (_, (loss, aux_g)), grads = TL.value_and_grad(model, cfg, local)
-        out["moe/logits"] = SH.gather_full(logits, ("data", None, None),
+        out["moe/logits"] = SH.gather_full(logits, ("data", None, "model"),
                                            mesh).numpy()
         out["moe/aux"], out["moe/aux_grad_pass"] = aux.numpy(), aux_g.numpy()
         dist.all_reduce(loss, op=dist.ReduceOp.AVG,
@@ -385,6 +466,7 @@ def _worker(rank: int, out_dir: str) -> None:
                                                        mesh4).numpy()
 
         _tp_worker(inp, mesh, out)
+        _tie_worker(mesh, out)
 
         # gpipe over the (4, 1) mesh's data axis
         w = torch.from_numpy(inp["pipe_w"])
@@ -406,10 +488,13 @@ def _tp_train_batch(inp, cfg) -> dict:
 
 def _tp_worker(inp, mesh, out) -> None:
     """The tensor-parallel cases on the (2, 2) mesh: prefill, four decode
-    positions at B = 2 and 1, the next token; the product shapes of
-    llama's prefill."""
-    seen = {"heads": [], "widths": []}
+    positions at B = 2 and 1, the next token, each rank's blocks of the
+    logits; the product shapes of llama's prefill and the mixers' widths
+    of jamba's and xlstm's."""
+    seen = {"heads": [], "widths": [], "mamba": set(), "mlstm": set(),
+            "slstm": set()}
     flash, gather = L.flash_attention, L.fsdp_gather
+    scan, mlstm_in, slstm_step = S._linear_scan, X._mlstm_inputs, X._slstm_step
 
     def heads(q, *a, **kw):
         seen["heads"].append(q.shape[2])
@@ -419,6 +504,19 @@ def _tp_worker(inp, mesh, out) -> None:
         w = gather(w, tp_dim)
         seen["widths"].append(tuple(w.shape))
         return w
+
+    def channels(a, b):  # a: (B, L, d_in on this rank, N)
+        seen["mamba"].add(a.shape[2])
+        return scan(a, b)
+
+    def mlstm_heads(*a, **kw):
+        q = mlstm_in(*a, **kw)
+        seen["mlstm"].add(q[0].shape[-2])
+        return q
+
+    def units(r, f_bias, xs, state):
+        seen["slstm"].add((xs[0].shape[-1], tuple(r[0].shape)))
+        return slstm_step(r, f_bias, xs, state)
 
     tokens = torch.from_numpy(inp["tp_tokens"])
     frames = torch.from_numpy(inp["tp_frames"])
@@ -430,15 +528,21 @@ def _tp_worker(inp, mesh, out) -> None:
         if cfg.encoder_layers:
             batch["frontend"] = frames
         L.flash_attention, L.fsdp_gather = heads, widths
+        S._linear_scan, X._mlstm_inputs, X._slstm_step = (
+            channels, mlstm_heads, units)
         try:
             logits = TL.shard_prefill_step(cfg, mesh)(model, batch)
         finally:
             L.flash_attention, L.fsdp_gather = flash, gather
+            S._linear_scan, X._mlstm_inputs, X._slstm_step = (
+                scan, mlstm_in, slstm_step)
         if case == "llama":
             out["tp/shapes/heads"] = np.array(seen["heads"])
             out["tp/shapes/widths"] = np.array(seen["widths"])
-        out[f"tp/{case}/prefill"] = SH.gather_full(
-            logits, ("data", None, None), mesh).numpy()
+        with AS.meshed(("data",), mesh):
+            out[f"tp/{case}/vocab_split"] = np.array(
+                T.vocab_start(model, cfg) is not None)
+        out[f"tp/{case}/prefill"] = logits.numpy()
         for B in TP_BATCHES[case]:
             split = B % 2 == 0
             bspec = ("data" if split else None, None)
@@ -457,17 +561,17 @@ def _tp_worker(inp, mesh, out) -> None:
                         model, cfg, cache, tok, pos,
                         cross_kv=cross_local if cross else None,
                         kv_seq_axis="model" if split else ("data", "model"))
-                    out[f"tp/{case}/decode/{B}/{pos}"] = SH.gather_full(
-                        logits, bspec + (None,), mesh).numpy()
+                    out[f"tp/{case}/decode/{B}/{pos}"] = logits.numpy()
             nxt, cache = TL.shard_decode_step(cfg, mesh)(
                 model, cache, tokens[:B, TP_STEPS:TP_STEPS + 1], TP_STEPS,
                 cross_kv=cross)
             out[f"tp/{case}/next/{B}"] = SH.gather_full(nxt, bspec,
                                                         mesh).numpy()
-            spec = SH.cache_specs(mesh, T.init_cache(
-                cfg, B, TP_LEN, torch.float32, device="meta"), B, False)
-            out[f"tp/{case}/cache_k/{B}"] = SH.gather_full(
-                cache[0]["k"], spec[0]["k"], mesh).numpy()
+            specs = _flat(SH.cache_specs(mesh, T.init_cache(
+                cfg, B, TP_LEN, torch.float32, device="meta"), B, False)[0])
+            for key, leaf in _flat(cache[0]).items():
+                out[f"tp/{case}/cache/{B}/{key}"] = SH.gather_full(
+                    leaf, specs[key], mesh).numpy()
         if case != "llama":  # llama's: the sharded train step's test
             local = TL._local_batch(_tp_train_batch(inp, cfg), mesh)
             with AS.meshed(("data",), mesh):
@@ -475,6 +579,44 @@ def _tp_worker(inp, mesh, out) -> None:
             for name, p in model.named_parameters():
                 out[f"tp/{case}/grad/{name}"] = SH.gather_full(
                     grads[name], p.shard_spec, mesh).numpy()
+    out["tp/shapes/mamba"] = np.array(sorted(seen["mamba"]))
+    out["tp/shapes/mlstm"] = np.array(sorted(seen["mlstm"]))
+    out["tp/shapes/slstm"] = np.array([[d, *r] for d, r in sorted(
+        seen["slstm"])])
+
+
+def _tie_model():
+    """The untied smoke llama of ``TIE_COLS``: its logits are +-x_0 at the
+    four columns and zero elsewhere, so the largest tie across the two
+    vocab shards whatever x_0's sign."""
+    cfg = dataclasses.replace(smoke_config(get_config(LLAMA)),
+                              tie_embeddings=False)
+    model = T.Transformer(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(26))
+    with torch.no_grad():
+        model.lm_head.zero_()
+        for col, sign in TIE_COLS.items():
+            model.lm_head[0, col] = sign
+        model.final_norm.scale.zero_()
+        model.final_norm.scale[0] = 1.0
+    return cfg, model
+
+
+def _tie_worker(mesh, out) -> None:
+    """``shard_decode_step`` on the tie model (B = 2, one step), beside the
+    unsharded logits and argmax."""
+    cfg, model = _tie_model()
+    tok = torch.from_numpy(np.random.default_rng(26).integers(
+        0, cfg.vocab, (2, 1)))
+    with torch.inference_mode():
+        logits, _ = T.decode_step(model, cfg, T.init_cache(
+            cfg, 2, TP_LEN, torch.float32, device="cpu"), tok, 0)
+    out["tie/logits"] = logits.numpy()
+    TL.shard_model(model, cfg, mesh)
+    nxt, _ = TL.shard_decode_step(cfg, mesh)(
+        model, T.init_cache(cfg, 2, TP_LEN, torch.float32, device="cpu",
+                            mesh=mesh), tok, 0)
+    out["tie/next"] = SH.gather_full(nxt, ("data", None), mesh).numpy()
 
 
 def _driver_cmd(ck: str, *launch) -> list:
@@ -722,22 +864,36 @@ def test_split_kv_cache_write_lands_on_the_owner_only(runs):
 
 @pytest.mark.parametrize("case", list(TP_CASES))
 def test_tensor_parallel_prefill_and_decode_match_reference(runs, case):
-    """Prefill logits, four decode positions at B = 2 (cache sequence over
-    `model`) and B = 1 (over both axes), the cache after them and the next
-    token, on the (2, 2) mesh against the reference's unsharded steps."""
+    """Each rank's block of the prefill logits and of four decode
+    positions' at B = 2 (cache sequence over `model`) and B = 1 (over both
+    axes) -- its batch shard and, where `model` divides the vocab, its
+    vocab shard, as the reference's output splits them -- the first
+    layer's cache after them and the next token, on the (2, 2) mesh
+    against the reference's unsharded steps."""
     _, ref, _, port, _ = runs
-    for out in port:
-        np.testing.assert_allclose(out[f"tp/{case}/prefill"],
-                                   ref[f"tp/{case}/prefill"], rtol=1e-5,
-                                   atol=1e-5)
+    cfg, _ = _tp_cfgs(case)
+    split = cfg.vocab % 2 == 0
+    tol = TP_TOL.get(case, 1e-5)
+    for rank, out in enumerate(port):
+        assert bool(out[f"tp/{case}/vocab_split"]) == split
+        np.testing.assert_allclose(
+            out[f"tp/{case}/prefill"],
+            _block(ref[f"tp/{case}/prefill"], rank, split), rtol=tol,
+            atol=tol)
         for B in TP_BATCHES[case]:
             for pos in range(TP_STEPS):
                 key = f"tp/{case}/decode/{B}/{pos}"
-                np.testing.assert_allclose(out[key], ref[key], rtol=1e-5,
-                                           atol=1e-5, err_msg=key)
-            np.testing.assert_allclose(out[f"tp/{case}/cache_k/{B}"],
-                                       ref[f"tp/{case}/cache_k/{B}"],
-                                       rtol=1e-5, atol=1e-5)
+                want = ref[key]
+                if B == 1:  # the batch replicated over `data`
+                    want = np.concatenate([want, want])
+                np.testing.assert_allclose(out[key], _block(want, rank, split),
+                                           rtol=tol, atol=tol, err_msg=key)
+            keys = [k for k in ref if k.startswith(f"tp/{case}/cache/{B}/")]
+            assert keys and sorted(keys) == sorted(
+                k for k in out if k.startswith(f"tp/{case}/cache/{B}/"))
+            for key in keys:
+                np.testing.assert_allclose(out[key], ref[key], rtol=tol,
+                                           atol=tol, err_msg=key)
             np.testing.assert_array_equal(out[f"tp/{case}/next/{B}"],
                                           ref[f"tp/{case}/next/{B}"])
 
@@ -746,15 +902,18 @@ def test_tensor_parallel_prefill_and_decode_match_reference(runs, case):
 def test_tensor_parallel_gradients_match_unsharded(runs, case):
     """Every gradient through the split layers (whisper's cross-attention,
     the k and v gathered over `model` and their reduce-scattered
-    gradients, the layer gathered whole), gathered, against one rank's."""
+    gradients, the layer gathered whole, mamba's all-to-all and x_proj
+    sum, the sLSTM's two gathers of h, the vocab-parallel loss), gathered,
+    against one rank's."""
     inp, _, _, port, _ = runs
     cfg, _ = _tp_cfgs(case)
+    rtol, atol = (TP_TOL[case],) * 2 if case in TP_TOL else (RTOL, ATOL)
     model = params_from_jax(inp["tp_params"][case], cfg, device="cpu")
     _, grads = TL.value_and_grad(model, cfg, _tp_train_batch(inp, cfg))
     for out in port:
         for name, g in grads.items():
             np.testing.assert_allclose(out[f"tp/{case}/grad/{name}"],
-                                       g.numpy(), rtol=RTOL, atol=ATOL,
+                                       g.numpy(), rtol=rtol, atol=atol,
                                        err_msg=name)
 
 
@@ -772,6 +931,39 @@ def test_tensor_parallel_products_run_on_the_model_slice(runs):
         assert out["tp/shapes/heads"].tolist() == [cfg.n_heads // 2]
         assert [tuple(w) for w in out["tp/shapes/widths"]] == [
             (D, q), (D, kv), (D, kv), (q, D), (D, f), (D, f), (f, D)]
+
+
+def test_recurrent_mixers_run_on_the_model_slice(runs):
+    """jamba's mamba scans d_inner / 2 channels a rank; xlstm's mLSTM
+    runs n_heads / 2 heads and its sLSTM D / 2 units (recurrent weights
+    (D, D / 2)) a rank."""
+    _, _, _, port, _ = runs
+    jamba, _ = _tp_cfgs("jamba")
+    xlstm, _ = _tp_cfgs("xlstm")
+    d_in = jamba.mamba.expand * jamba.d_model
+    D = xlstm.d_model
+    for out in port:
+        assert out["tp/shapes/mamba"].tolist() == [d_in // 2]
+        assert out["tp/shapes/mlstm"].tolist() == [xlstm.n_heads // 2]
+        assert out["tp/shapes/slstm"].tolist() == [[D // 2, D, D // 2]]
+
+
+def test_shard_decode_step_breaks_vocab_ties_to_the_lower_index(runs):
+    """The largest logit ties across the two vocab shards (exactly: both
+    are x_0); ``shard_decode_step`` gives the lower index, as the
+    unsharded ``torch.argmax`` and the reference's ``jnp.argmax`` do."""
+    _, _, _, port, _ = runs
+    logits = port[0]["tie/logits"][:, 0]
+    top = logits.max(axis=-1)
+    for pair in ((5, 135), (9, 130)):
+        np.testing.assert_array_equal(logits[:, pair[0]], logits[:, pair[1]])
+    for row, t in zip(logits, top):
+        assert t > 0 and sorted(np.nonzero(row == t)[0].tolist()) in (
+            [5, 135], [9, 130])
+    want = np.argmax(logits, axis=-1)[:, None]
+    assert set(want[:, 0].tolist()) <= {5, 9}
+    for out in port:
+        np.testing.assert_array_equal(out["tie/next"], want)
 
 
 def test_gpipe_matches_reference_and_sequential(runs):

@@ -207,3 +207,24 @@ def test_fractal_sort_stats_match_reference(n, p):
                           s.bytes_written, s.n_bins) for s in got.pass_stats]
                         == [(s.shift, s.bits, s.kind, s.bytes_read,
                              s.bytes_written, s.n_bins) for s in want.pass_stats])
+
+
+@pytest.mark.parametrize("name", ["paper-p32", "paper-p16",
+                                  "paper-native-plan"])
+def test_paper_workloads_match_reference(name):
+    """``configs/fractal_sort_paper``: every field of every workload, and
+    the registry's names, equal the reference's."""
+    import dataclasses
+
+    from repro.configs import fractal_sort_paper as jpaper
+    from repro_torch.configs import fractal_sort_paper as tpaper
+
+    assert list(tpaper.WORKLOADS) == list(jpaper.WORKLOADS)
+    assert ([f.name for f in dataclasses.fields(tpaper.SortWorkload)]
+            == [f.name for f in dataclasses.fields(jpaper.SortWorkload)])
+    got, want = tpaper.WORKLOADS[name], jpaper.WORKLOADS[name]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert {"PAPER_P32": "paper-p32", "PAPER_P16": "paper-p16",
+            "PAPER_NATIVE_PLAN": "paper-native-plan"} == {
+        k: getattr(tpaper, k).name for k in ("PAPER_P32", "PAPER_P16",
+                                             "PAPER_NATIVE_PLAN")}

@@ -167,3 +167,26 @@ def test_mamba_apply_without_a_mamba_config_raises():
     with pytest.raises(ValueError, match="cfg.mamba"):
         S.mamba_apply(mixer, dataclasses.replace(cfg, mamba=None),
                       torch.zeros(1, 4, cfg.d_model))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 6])
+def test_in_proj_all_to_all_gives_each_rank_its_channels(m):
+    """The all-to-all plan of the split ``in_proj``, played out on column
+    indices for every rank of a `model` axis of m: each rank receives
+    the x and z columns of its own d_in / m channels, in order (odd m:
+    blocks that cross the x | z border are reordered before they are
+    sent)."""
+    d_in = 24
+    c, d = 2 * d_in // m, d_in // m
+    cols = np.arange(2 * d_in)
+    plans = [S._in_proj_plan(d_in, m, r) for r in range(m)]
+    sent = []
+    for r, (send, _, order) in enumerate(plans):
+        block = cols[r * c:(r + 1) * c][order]
+        sent.append(np.split(block, np.cumsum(send)[:-1]))
+    for r, (_, recv, _) in enumerate(plans):
+        assert recv == [len(sent[s][r]) for s in range(m)]
+        got = np.concatenate([sent[s][r] for s in range(m)])
+        want = np.concatenate([cols[r * d:(r + 1) * d],
+                               cols[d_in + r * d:d_in + (r + 1) * d]])
+        np.testing.assert_array_equal(got, want)

@@ -35,6 +35,18 @@ from repro_torch.core.faults import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch ops: the suite runs
+    several test processes on the host's cores, where torch's default
+    thread pool waits on busy cores (a smoke jamba gradient took 9.4 s
+    on 8 threads against 0.15 s on one, beside six busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _empty_autotune_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))

@@ -68,6 +68,18 @@ STEP_ARCHS = ["llama3.2-1b", "qwen3-moe-30b-a3b", "xlstm-125m"]
 B, S = 2, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch ops: the suite runs
+    several test processes on the host's cores, where torch's default
+    thread pool waits on busy cores (a smoke jamba gradient took 9.4 s
+    on 8 threads against 0.15 s on one, beside six busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(arch):
     return smoke_config(get_config(arch)), jsmoke_config(jget_config(arch))
 
