@@ -24,6 +24,14 @@ reconstruct, and the empty-input guard.
 Keys travel as int32 storage of their uint32 bits.  A digit is
 ``(u >> shift) & (n_bins - 1)`` on int32: the arithmetic shift fills sign
 bits above bit ``31 - shift``, which the mask drops.
+
+Spans (:mod:`repro_torch.obs.trace`, device-timed on the card): each
+pass is an ``executor.pass`` whose phases are ``executor.digit`` (digit
+extraction), ``executor.rank`` (the backend's rank call),
+``executor.scatter`` (the payload carry) and, in the MSD pass,
+``executor.reconstruct``; ``executor.histogram`` is the one K1 sweep
+before the pass loop.  Each opens where its work runs, so every mode
+that reaches the same primitive is covered.
 """
 
 from __future__ import annotations
@@ -66,7 +74,8 @@ _TABLE_SLICE = 1 << 16
 def _digit_of(u: torch.Tensor, dp: DigitPass) -> torch.Tensor:
     """The ``dp.bits``-wide digit of each key (int32 storage of uint32
     bits) at ``dp.shift``."""
-    return (u >> dp.shift) & (dp.n_bins - 1)
+    with trace.span("executor.digit", u.device):
+        return (u >> dp.shift) & (dp.n_bins - 1)
 
 
 def _as_key_stream(keys: torch.Tensor, encode) -> torch.Tensor:
@@ -134,16 +143,23 @@ class PassBackend:
         out.index_add_(0, valid, torch.ones_like(valid, dtype=torch.int32))
         return out
 
-    def scatter(self, rank: torch.Tensor, *arrays: torch.Tensor):
-        """Place each array's elements at their ranks (payload carry)."""
-        idx = rank.long()
-        outs = []
-        for a in arrays:
-            src = _signed(a)
-            out = torch.zeros_like(src)
-            out[idx] = src
-            outs.append(out.view(a.dtype))
-        return tuple(outs)
+    def scatter(self, rank: torch.Tensor, *arrays: torch.Tensor,
+                trailing_bits: Optional[int] = None):
+        """Place each array's elements at their ranks (payload carry);
+        ``trailing_bits`` keeps only that many low bits of the first
+        array (the MSD pass's trailing-bit entries)."""
+        with trace.span("executor.scatter", rank.device):
+            if trailing_bits is not None:
+                arrays = (arrays[0] & ((1 << trailing_bits) - 1),
+                          *arrays[1:])
+            idx = rank.long()
+            outs = []
+            for a in arrays:
+                src = _signed(a)
+                out = torch.zeros_like(src)
+                out[idx] = src
+                outs.append(out.view(a.dtype))
+            return tuple(outs)
 
     def lsd_pass_pairs(self, u: torch.Tensor, payloads: tuple,
                        dp: DigitPass,
@@ -179,21 +195,25 @@ class TorchBackend(PassBackend):
         from repro_torch.core.fractal_sort import rank_engine
         from repro_torch.core.sort_plan import pick_engine, scatter_tile_len
 
-        if engine is None:
-            bits = max(n_bins - 1, 1).bit_length()
-            engine = pick_engine(digit.shape[0], bits)
-            # a hint computed for the other engine's tile shape must not
-            # leak in: re-derive it for the picked engine.
-            if engine == "scatter":
-                batch_hint = scatter_tile_len(n_bins, self.batch)
-        batch = self.batch if batch_hint is None else batch_hint
-        return rank_engine(engine)(digit, n_bins, batch=batch,
-                                   carry_in=carry_in, bin_start=bin_start)
+        with trace.span("executor.rank", digit.device):
+            if engine is None:
+                bits = max(n_bins - 1, 1).bit_length()
+                engine = pick_engine(digit.shape[0], bits)
+                # a hint computed for the other engine's tile shape must
+                # not leak in: re-derive it for the picked engine.
+                if engine == "scatter":
+                    batch_hint = scatter_tile_len(n_bins, self.batch)
+            batch = self.batch if batch_hint is None else batch_hint
+            return rank_engine(engine)(digit, n_bins, batch=batch,
+                                       carry_in=carry_in,
+                                       bin_start=bin_start)
 
     def reconstruct(self, counts, trailing, plan):
         from repro_torch.core.fractal_sort import reconstruct
 
-        return reconstruct(counts, trailing, plan.passes[-1].bits, plan.p)
+        with trace.span("executor.reconstruct", trailing.device):
+            return reconstruct(counts, trailing, plan.passes[-1].bits,
+                               plan.p)
 
 
 class CudaBackend(PassBackend):
@@ -215,21 +235,23 @@ class CudaBackend(PassBackend):
         from repro_torch.kernels.fractal_rank import (fractal_rank_counts,
                                                       scatter_table_fits)
 
-        if engine == "scatter" and not scatter_table_fits(digit.shape[0],
-                                                          n_bins):
-            # K3's count table would pass its cap at this shape; K2 keeps
-            # no count table and gives the same ranks
-            engine = "onehot"
-        if carry_in is not None:
-            if bin_start is None:
-                if counts is None:
-                    counts = self.histogram(digit, n_bins)
-                bin_start = exclusive_cumsum(counts)
-            bin_start = bin_start + carry_in
-        rank, counts, carry = fractal_rank_counts(
-            digit, n_bins, block=self.block, bin_start=bin_start,
-            engine=engine, counts=counts)
-        return rank, counts, carry if carry_in is None else carry_in + counts
+        with trace.span("executor.rank", digit.device):
+            if engine == "scatter" and not scatter_table_fits(
+                    digit.shape[0], n_bins):
+                # K3's count table would pass its cap at this shape; K2
+                # keeps no count table and gives the same ranks
+                engine = "onehot"
+            if carry_in is not None:
+                if bin_start is None:
+                    if counts is None:
+                        counts = self.histogram(digit, n_bins)
+                    bin_start = exclusive_cumsum(counts)
+                bin_start = bin_start + carry_in
+            rank, counts, carry = fractal_rank_counts(
+                digit, n_bins, block=self.block, bin_start=bin_start,
+                engine=engine, counts=counts)
+            return rank, counts, (carry if carry_in is None
+                                  else carry_in + counts)
 
     def plan_counts(self, u, plan):
         """One K1 sweep over the key stream when the plan's bins fit it
@@ -240,7 +262,8 @@ class CudaBackend(PassBackend):
 
         if not sweep_eligible(plan.passes):
             return None
-        return fractal_histogram_digits(u, plan.passes)
+        with trace.span("executor.histogram", u.device):
+            return fractal_histogram_digits(u, plan.passes)
 
     def histogram(self, digit, n_bins, init=None):
         from repro_torch.kernels.fractal_histogram import fractal_histogram
@@ -251,7 +274,8 @@ class CudaBackend(PassBackend):
         from repro_torch.kernels.fractal_reconstruct import (
             fractal_reconstruct_plan)
 
-        return fractal_reconstruct_plan(counts, trailing, plan)
+        with trace.span("executor.reconstruct", trailing.device):
+            return fractal_reconstruct_plan(counts, trailing, plan)
 
 
 class DistributedBackend(PassBackend):
@@ -320,19 +344,22 @@ class PlanExecutor:
                                   with_index=with_index, plan=plan).pass_stats
 
     @staticmethod
-    def _pass_span(pass_stats, index: int, dp: DigitPass):
-        if pass_stats is None:
-            return trace.NULL
+    def _pass_span(pass_stats, index: int, dp: DigitPass,
+                   device: torch.device):
+        if pass_stats is None:  # not collecting: a profiler's range at most
+            return trace.span("executor.pass")
         ps = pass_stats[index]
         return trace.span(
-            "executor.pass", index=index, kind=ps.kind, shift=dp.shift,
-            bits=dp.bits, bytes_read=ps.bytes_read,
+            "executor.pass", device, index=index, kind=ps.kind,
+            shift=dp.shift, bits=dp.bits, bytes_read=ps.bytes_read,
             bytes_written=ps.bytes_written)
 
     @staticmethod
-    def _sync(*arrays: torch.Tensor) -> None:
-        """Wait for queued device work so a pass span's wall covers it."""
+    def _sync(span, *arrays: torch.Tensor) -> None:
+        """Wait for queued device work so a pass span's wall covers it;
+        the span's device interval ends before the wait."""
         if any(a.is_cuda for a in arrays):
+            span.end_device()
             torch.cuda.synchronize()
 
     def _msd_rank(self, u: torch.Tensor, last: DigitPass,
@@ -366,30 +393,31 @@ class PlanExecutor:
         pass_stats = self._pass_stats(u, plan, with_index=False)
         pass_counts = self._plan_counts(u, plan)
         for i, dp in enumerate(plan.passes[:-1]):
-            with self._pass_span(pass_stats, i, dp):
+            with self._pass_span(pass_stats, i, dp, u.device) as sp:
                 u, = self.backend.lsd_pass_pairs(u, (), dp, pass_counts[i])
                 if pass_stats is not None:
-                    self._sync(u)
+                    self._sync(sp, u)
         last = plan.passes[-1]
-        with self._pass_span(pass_stats, len(plan.passes) - 1, last):
+        with self._pass_span(pass_stats, len(plan.passes) - 1, last,
+                             u.device) as sp:
             if not self.backend.reconstructs:
                 out, = self.backend.lsd_pass_pairs(u, (), last,
                                                    pass_counts[-1])
                 if pass_stats is not None:
-                    self._sync(out)
+                    self._sync(sp, out)
                 return out
             rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
             if last.shift:
                 # compressed entries: only the trailing bits travel; the
                 # prefix is rebuilt from bin positions.
                 (trailing,) = self.backend.scatter(
-                    rank, u & ((1 << last.shift) - 1))
+                    rank, u, trailing_bits=last.shift)
             else:
                 # zero-payload regime: output from bin positions alone.
                 trailing = torch.zeros_like(u)
             out = self.backend.reconstruct(counts, trailing, plan)
             if pass_stats is not None:
-                self._sync(out)
+                self._sync(sp, out)
         return out
 
     # -- key–value (pairs) sort ---------------------------------------------
@@ -410,29 +438,30 @@ class PlanExecutor:
         pass_stats = self._pass_stats(u, plan, with_index=True)
         pass_counts = self._plan_counts(u, plan)
         for i, dp in enumerate(plan.passes[:-1]):
-            with self._pass_span(pass_stats, i, dp):
+            with self._pass_span(pass_stats, i, dp, u.device) as sp:
                 u, *payloads = self.backend.lsd_pass_pairs(
                     u, tuple(payloads), dp, pass_counts[i])
                 if pass_stats is not None:
-                    self._sync(u, *payloads)
+                    self._sync(sp, u, *payloads)
         last = plan.passes[-1]
-        with self._pass_span(pass_stats, len(plan.passes) - 1, last):
+        with self._pass_span(pass_stats, len(plan.passes) - 1, last,
+                             u.device) as sp:
             if not self.backend.reconstructs:
                 keys_out, *payloads = self.backend.lsd_pass_pairs(
                     u, tuple(payloads), last, pass_counts[-1])
                 if pass_stats is not None:
-                    self._sync(keys_out, *payloads)
+                    self._sync(sp, keys_out, *payloads)
                 return keys_out, (payloads[0] if single else tuple(payloads))
             rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
             if last.shift:
                 trailing, *payloads = self.backend.scatter(
-                    rank, u & ((1 << last.shift) - 1), *payloads)
+                    rank, u, *payloads, trailing_bits=last.shift)
             else:
                 payloads = self.backend.scatter(rank, *payloads)
                 trailing = torch.zeros_like(u)
             keys_out = self.backend.reconstruct(counts, trailing, plan)
             if pass_stats is not None:
-                self._sync(keys_out, *payloads)
+                self._sync(sp, keys_out, *payloads)
         return keys_out, (payloads[0] if single else tuple(payloads))
 
     # -- argsort ------------------------------------------------------------
@@ -450,11 +479,11 @@ class PlanExecutor:
         pass_stats = self._pass_stats(u, plan, with_index=True)
         pass_counts = self._plan_counts(u, plan)
         for i, dp in enumerate(plan.passes):
-            with self._pass_span(pass_stats, i, dp):
+            with self._pass_span(pass_stats, i, dp, u.device) as sp:
                 u, idx = self.backend.lsd_pass_pairs(u, (idx,), dp,
                                                      pass_counts[i])
                 if pass_stats is not None:
-                    self._sync(u, idx)
+                    self._sync(sp, u, idx)
         return idx
 
     # -- segment-aware re-ranking (grouped-trailing and batched modes) --------

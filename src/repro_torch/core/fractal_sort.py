@@ -26,6 +26,10 @@ This module holds
   :class:`~repro_torch.core.executor.TorchBackend` (torch ops) on the
   CPU; ``backend="torch"``/``"cuda"`` picks one explicitly.
 
+Each public sort is a ``sort.call`` span (:mod:`repro_torch.obs.trace`;
+``entry``, ``n``, ``p``) around its plan resolution, ``sort.plan``, and
+the executor's spans.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when CUDA is unavailable.  Pass ``device="cpu"`` to run on the
 CPU.  Keys travel as int32 storage of their uint32 bits; a p = 32 result
@@ -44,6 +48,7 @@ from repro_torch.core import fractal_tree as ft
 from repro_torch.core.autotune import tuned_plan
 from repro_torch.core.executor import CudaBackend, PlanExecutor, TorchBackend
 from repro_torch.core.sort_plan import SortPlan, make_sort_plan, rank_chunk_len
+from repro_torch.obs import trace
 
 __all__ = [
     "PassStats",
@@ -426,9 +431,16 @@ def _resolve_plan(n: int, p: int, l_n: Optional[int],
         if plan.p != p:
             raise ValueError(f"plan is for p={plan.p}, sort asked p={p}")
         return plan
-    if l_n is None and max_bins_log2 is None:
-        return tuned_plan(n, p, backend=backend)
-    return make_sort_plan(n, p, l_n=l_n, max_bins_log2=max_bins_log2)
+    with trace.span("sort.plan"):
+        if l_n is None and max_bins_log2 is None:
+            return tuned_plan(n, p, backend=backend)
+        return make_sort_plan(n, p, l_n=l_n, max_bins_log2=max_bins_log2)
+
+
+def _call_span(entry: str, p: int, device):
+    """The ``sort.call`` span of the public sort ``entry`` on ``device``;
+    the caller sets ``n`` once the keys are a tensor."""
+    return trace.span("sort.call", resolve_device(device), entry=entry, p=p)
 
 
 def fractal_sort(keys, p: int, l_n: Optional[int] = None, batch: int = 1024,
@@ -438,11 +450,14 @@ def fractal_sort(keys, p: int, l_n: Optional[int] = None, batch: int = 1024,
     """Sort integer keys in [0, 2**p) by executing a :class:`SortPlan`:
     bounded-width stable LSD digit passes plus one fractal MSD pass.
     ``max_bins_log2`` caps per-pass bins; ``plan`` pins an exact plan."""
-    keys = to_device(keys, device)
-    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
-                         backend_name(backend, keys.device))
-    out = PlanExecutor(make_backend(backend, keys.device, batch)).run(keys, plan)
-    return out if out is keys else _as_keys_dtype(out, p)
+    with _call_span("fractal_sort", p, device) as sp:
+        keys = to_device(keys, device)
+        sp.set(n=keys.shape[0])
+        plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
+                             backend_name(backend, keys.device))
+        out = PlanExecutor(make_backend(backend, keys.device, batch)
+                           ).run(keys, plan)
+        return out if out is keys else _as_keys_dtype(out, p)
 
 
 def fractal_sort_pairs(keys, values, p: int, l_n: Optional[int] = None,
@@ -453,13 +468,15 @@ def fractal_sort_pairs(keys, values, p: int, l_n: Optional[int] = None,
     keys in [0, 2**p) and one payload column of equal length.  The payload
     rides every pass, including the fractal MSD pass whose key prefix is
     rebuilt from bin positions.  Stable: equal keys keep arrival order."""
-    keys = to_device(keys, device)
-    values = torch.as_tensor(values).to(keys.device)
-    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
-                         backend_name(backend, keys.device))
-    out, vals = PlanExecutor(make_backend(backend, keys.device, batch)
-                             ).run_pairs(keys, values, plan)
-    return (out if out is keys else _as_keys_dtype(out, p)), vals
+    with _call_span("fractal_sort_pairs", p, device) as sp:
+        keys = to_device(keys, device)
+        sp.set(n=keys.shape[0])
+        values = torch.as_tensor(values).to(keys.device)
+        plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
+                             backend_name(backend, keys.device))
+        out, vals = PlanExecutor(make_backend(backend, keys.device, batch)
+                                 ).run_pairs(keys, values, plan)
+        return (out if out is keys else _as_keys_dtype(out, p)), vals
 
 
 def fractal_argsort(keys, p: int, batch: int = 1024,
@@ -471,11 +488,13 @@ def fractal_argsort(keys, p: int, batch: int = 1024,
     payload)."""
     if p > 32:
         raise ValueError("argsort covers p <= 32 via the digit plan")
-    keys = to_device(keys, device)
-    plan = _resolve_plan(keys.shape[0], p, None, max_bins_log2, plan,
-                         backend_name(backend, keys.device))
-    return PlanExecutor(make_backend(backend, keys.device, batch)
-                        ).run_argsort(keys, plan)
+    with _call_span("fractal_argsort", p, device) as sp:
+        keys = to_device(keys, device)
+        sp.set(n=keys.shape[0])
+        plan = _resolve_plan(keys.shape[0], p, None, max_bins_log2, plan,
+                             backend_name(backend, keys.device))
+        return PlanExecutor(make_backend(backend, keys.device, batch)
+                            ).run_argsort(keys, plan)
 
 
 def fractal_sort_batched(keys, p: int, num_batches: int,
@@ -489,8 +508,10 @@ def fractal_sort_batched(keys, p: int, num_batches: int,
     entries by the plan's MSD prefix, and the executor's segment-aware
     grouped-trailing passes order the trailing bits in place.  Returns
     ``(sorted_keys, per-slice histograms)``."""
-    keys = to_device(keys, device)
-    plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
-                         backend_name(backend, keys.device))
-    return PlanExecutor(make_backend(backend, keys.device, batch)
-                        ).run_streaming(keys, plan, num_batches)
+    with _call_span("fractal_sort_batched", p, device) as sp:
+        keys = to_device(keys, device)
+        sp.set(n=keys.shape[0])
+        plan = _resolve_plan(keys.shape[0], p, l_n, max_bins_log2, plan,
+                             backend_name(backend, keys.device))
+        return PlanExecutor(make_backend(backend, keys.device, batch)
+                            ).run_streaming(keys, plan, num_batches)

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.executor import CudaBackend, PlanExecutor, _like_keys
-from repro_torch.core.fractal_sort import to_device
+from repro_torch.core.fractal_sort import _call_span, to_device
 from repro_torch.core.sort_plan import make_sort_plan
 from repro_torch.kernels.flash_attention import (
     flash_attention_kernel as _flash)
@@ -27,6 +27,7 @@ from repro_torch.kernels.fractal_rank import (
 from repro_torch.kernels.fractal_reconstruct import (
     fractal_reconstruct as _recon)
 from repro_torch.kernels.moe_dispatch import moe_dispatch as _dispatch
+from repro_torch.obs import trace
 
 __all__ = [
     "flash_attention",
@@ -110,10 +111,14 @@ def fractal_sort_kernel(keys, p: int, block: int = 1024,
     rank kernel and full-key scatter;
     the MSD pass scatters only the trailing-bit entries and the
     reconstruct kernel rebuilds the prefix bits."""
-    keys = to_device(keys, device)
-    plan = make_sort_plan(keys.shape[0], p, max_bins_log2=max_bins_log2)
-    out = PlanExecutor(CudaBackend(block=block)).run(keys, plan)
-    return _like_keys(out, keys)
+    with _call_span("fractal_sort_kernel", p, device) as sp:
+        keys = to_device(keys, device)
+        sp.set(n=keys.shape[0])
+        with trace.span("sort.plan"):
+            plan = make_sort_plan(keys.shape[0], p,
+                                  max_bins_log2=max_bins_log2)
+        out = PlanExecutor(CudaBackend(block=block)).run(keys, plan)
+        return _like_keys(out, keys)
 
 
 def fractal_sort_pairs_kernel(keys, values, p: int, block: int = 1024,
@@ -122,9 +127,13 @@ def fractal_sort_pairs_kernel(keys, values, p: int, block: int = 1024,
     """Kernel-path key–value sort: the payload rides every pass's scatter
     next to the keys (rank kernel per digit, reconstruct kernel for the
     prefix bits)."""
-    keys = to_device(keys, device)
-    values = torch.as_tensor(values).to(keys.device)
-    plan = make_sort_plan(keys.shape[0], p, max_bins_log2=max_bins_log2)
-    out, vals = PlanExecutor(CudaBackend(block=block)).run_pairs(
-        keys, values, plan)
-    return _like_keys(out, keys), vals
+    with _call_span("fractal_sort_pairs_kernel", p, device) as sp:
+        keys = to_device(keys, device)
+        sp.set(n=keys.shape[0])
+        values = torch.as_tensor(values).to(keys.device)
+        with trace.span("sort.plan"):
+            plan = make_sort_plan(keys.shape[0], p,
+                                  max_bins_log2=max_bins_log2)
+        out, vals = PlanExecutor(CudaBackend(block=block)).run_pairs(
+            keys, values, plan)
+        return _like_keys(out, keys), vals

@@ -1,16 +1,18 @@
 """Observability: spans + one metrics registry over the whole pipeline.
 
 - :mod:`repro_torch.obs.trace` — nested spans (env-gated by ``REPRO_TRACE``),
-  Perfetto export, machine-readable summary tree.
+  device-timed on a CUDA device, mirrored as host ranges on a recording
+  profiler's timeline, fed to the registry; Perfetto export,
+  machine-readable summary tree.
 - :mod:`repro_torch.obs.metrics` — the process-wide counter/gauge/histogram
   registry every repo layer feeds.
 - :func:`bandwidth_report` — measured per-phase byte traffic from a
   trace, side-by-side with the analytic model's prediction: the check
   on the paper's bandwidth-efficiency claim.
 
-Import-order contract: nothing in this package imports ``repro_torch.*`` —
-``core/dispatch.py``, ``core/faults.py`` and the stream stores all sit
-*above* it.
+Import-order contract: nothing in this package imports ``repro_torch.*``
+outside it — ``core/dispatch.py``, ``core/faults.py`` and the stream
+stores all sit *above* it.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ def bandwidth_report(tr: Trace,
 
     Every span carrying byte attributes (``bytes``, ``bytes_in``,
     ``bytes_out``, ``bytes_read``, ``bytes_written``) contributes its
-    traffic and wall to its phase (= span name); phases report achieved
-    ``bytes_per_s``.  With ``analytic``, the useful traffic
+    traffic and its seconds to its phase (= span name): its ``device_s``
+    where it was device-timed, its host wall otherwise (the CPU); phases
+    report achieved ``bytes_per_s``.  With ``analytic``, the useful traffic
     ``2 * n * key_bytes`` (one read + one write of the packed keys —
     the same numerator :func:`benchmarks.bench_bandwidth.b_eff` uses)
     divides both the analytic and the measured byte totals, so
@@ -51,22 +54,22 @@ def bandwidth_report(tr: Trace,
         if not nbytes:
             continue
         phase = phases.setdefault(
-            s["name"], {"bytes": 0, "wall_s": 0.0, "count": 0})
+            s["name"], {"bytes": 0, "seconds": 0.0, "count": 0})
         phase["bytes"] += nbytes
-        phase["wall_s"] += s["t1"] - s["t0"]
+        phase["seconds"] += s.get("device_s", s["t1"] - s["t0"])
         phase["count"] += 1
     for phase in phases.values():
         phase["bytes_per_s"] = (
-            phase["bytes"] / phase["wall_s"] if phase["wall_s"] > 0
+            phase["bytes"] / phase["seconds"] if phase["seconds"] > 0
             else None)
     bytes_total = sum(p["bytes"] for p in phases.values())
-    wall_total = sum(p["wall_s"] for p in phases.values())
+    seconds = sum(p["seconds"] for p in phases.values())
     report: Dict[str, Any] = {
         "phases": phases,
         "measured_bytes_total": bytes_total,
-        "measured_wall_s": wall_total,
+        "measured_seconds": seconds,
         "measured_bytes_per_s": (
-            bytes_total / wall_total if wall_total > 0 else None),
+            bytes_total / seconds if seconds > 0 else None),
     }
     if analytic is not None:
         key_bytes = 4 if analytic.p > 16 else 2

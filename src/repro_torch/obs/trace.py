@@ -5,6 +5,22 @@ A span is a named, attributed wall-clock interval::
     with trace.span("stream.partition_sort", bytes_in=nbytes):
         ...
 
+A span opened with a CUDA ``device`` (``trace.span("executor.pass",
+u.device)``) is device-timed too: while spans are collected it records a
+``torch.cuda.Event`` on the current stream as it opens and another as it
+closes, and nothing waits for them until the collection ends
+(:func:`stop`, or the exit of :func:`tracing`).  Then every finished span
+is resolved once: its record gets ``device_s`` (the stream time between
+its two events) where it has events, and its wall and device seconds are
+observed into the process-wide registry (:mod:`repro_torch.obs.metrics`)
+as the histograms ``span.<name>.wall_s`` and ``span.<name>.device_s``.
+
+While a ``torch.profiler`` records, every span also opens a host range
+of its name on the profiler's timeline (a non-user-scope record
+function, so the profiler mirrors none of it on the device), whether or
+not spans are collected: an exported profiler trace then shows the
+port's phases around the kernels they launch.
+
 Spans nest through a thread-local stack, so the executor's per-pass spans
 land under the stream loop's phase spans without any plumbing.  Worker
 threads (the ``REPRO_STREAM_WORKERS`` pool) don't inherit thread-locals;
@@ -12,19 +28,19 @@ threads (the ``REPRO_STREAM_WORKERS`` pool) don't inherit thread-locals;
 time and re-enters it around the pooled callable, keeping the tree
 connected across the pool.
 
-Collection is **env-gated by** ``REPRO_TRACE``: when off, :func:`span`
-returns a shared no-op handle after one module-global read — the
-instrumented hot paths pay a dict lookup and nothing else (asserted by
-``tests/test_obs.py``).  :func:`tracing` turns collection on for a scope
-(tests), :func:`suspended` turns it off for a scope (benchmark timing
-loops must not pay per-span bookkeeping or fill the buffer).
+Collection is **env-gated by** ``REPRO_TRACE``: when off, and no profiler
+records, :func:`span` returns a shared no-op handle after two global
+reads (asserted by ``tests/test_torch_obs.py``).  :func:`tracing` turns
+collection on for a scope (tests), :func:`suspended` turns it off for a
+scope (benchmark timing loops must not pay per-span bookkeeping or fill
+the buffer).
 
 Finished spans become a :class:`Trace`: exportable as Chrome/Perfetto
 trace-event JSON (:meth:`Trace.export` — load in ``ui.perfetto.dev``)
 and as a machine-readable aggregate tree (:meth:`Trace.summary`) that
 tests and CI gates assert on.
 
-Like :mod:`repro_torch.obs.metrics`, this module must not import ``repro_torch.*``:
+This module imports nothing of ``repro_torch`` outside this package:
 every layer above imports it.
 """
 from __future__ import annotations
@@ -35,6 +51,11 @@ import os
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
+
+import torch
+from torch.autograd import profiler as _profiler
+
+from repro_torch.obs import metrics
 
 __all__ = [
     "TRACE_ENV", "NULL", "Span", "Trace",
@@ -62,8 +83,29 @@ class _NullSpan:
     def annotate(self, key: str, value: Any) -> "_NullSpan":
         return self
 
+    def end_device(self) -> None:
+        pass
+
 
 NULL = _NullSpan()
+
+
+class _Range(_NullSpan):
+    """A span that only opens a host range of its name on a recording
+    profiler's timeline (spans are not being collected)."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = torch._C._profiler._RecordFunctionFast(name)
+
+    def __enter__(self) -> "_Range":
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rf.__exit__(*exc)
+        return False
 
 
 class _Collector:
@@ -74,6 +116,9 @@ class _Collector:
         self.spans: List[Dict[str, Any]] = []
         self.open_count = 0
         self._next_sid = 0
+        # finished spans not yet resolved: (record, (start, end) events
+        # or None)
+        self._unresolved: List[tuple] = []
 
     def open(self) -> int:
         with self.lock:
@@ -81,10 +126,29 @@ class _Collector:
             self.open_count += 1
             return self._next_sid
 
-    def close(self, record: Dict[str, Any]) -> None:
+    def close(self, record: Dict[str, Any], events) -> None:
         with self.lock:
             self.spans.append(record)
+            self._unresolved.append((record, events))
             self.open_count -= 1
+
+    def resolve(self) -> None:
+        """Give every span finished since the last call its ``device_s``
+        (waiting for its end event) and feed its wall and device seconds
+        to the registry.  Each span is resolved once."""
+        with self.lock:
+            todo, self._unresolved = self._unresolved, []
+        for record, events in todo:
+            name = record["name"]
+            metrics.histogram(f"span.{name}.wall_s").observe(
+                record["t1"] - record["t0"])
+            if events is None:
+                continue
+            start, end = events
+            end.synchronize()
+            record["device_s"] = start.elapsed_time(end) / 1e3
+            metrics.histogram(f"span.{name}.device_s").observe(
+                record["device_s"])
 
 
 _collector: Optional[_Collector] = None
@@ -106,16 +170,24 @@ def enabled() -> bool:
 class Span:
     """A live span: ``with``-entered, attributes settable while open."""
 
-    __slots__ = ("name", "attrs", "sid", "parent_sid", "t0", "_collector")
+    __slots__ = ("name", "attrs", "sid", "parent_sid", "t0", "_collector",
+                 "_device", "_start", "_end", "_rf")
 
     def __init__(self, collector: _Collector, name: str,
-                 attrs: Dict[str, Any]):
+                 attrs: Dict[str, Any],
+                 device: Optional[torch.device] = None):
         self._collector = collector
         self.name = name
         self.attrs = attrs
         self.sid = collector.open()
         self.parent_sid: Optional[int] = None
         self.t0 = 0.0
+        self._device = (device if device is not None
+                        and device.type == "cuda" else None)
+        self._start: Optional[torch.cuda.Event] = None
+        self._end: Optional[torch.cuda.Event] = None
+        self._rf = (torch._C._profiler._RecordFunctionFast(name)
+                    if _profiler._is_profiler_enabled else None)
 
     def set(self, **attrs: Any) -> "Span":
         """Merge attributes into the span (overwrites same-named keys)."""
@@ -128,16 +200,36 @@ class Span:
         self.attrs.setdefault(key, []).append(value)
         return self
 
+    def end_device(self) -> None:
+        """End the span's device interval now, for a span whose rest only
+        waits for the device (a sync launches nothing)."""
+        if self._start is not None and self._end is None:
+            self._end = self._event()
+
+    def _event(self) -> torch.cuda.Event:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self._device))
+        return event
+
     def __enter__(self) -> "Span":
         stack = _stack()
         if stack:
             self.parent_sid = stack[-1].sid
         stack.append(self)
+        if self._rf is not None:
+            self._rf.__enter__()
+        if self._device is not None:
+            self._start = self._event()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
+        events = None
+        if self._start is not None:
+            events = (self._start, self._end or self._event())
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         stack = _stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -150,17 +242,22 @@ class Span:
             "sid": self.sid, "parent": self.parent_sid, "name": self.name,
             "t0": self.t0, "t1": t1, "tid": threading.get_ident(),
             "attrs": dict(self.attrs),
-        })
+        }, events)
         return False
 
 
-def span(name: str, **attrs: Any):
-    """Open a span (use as a context manager).  When tracing is off this
-    is one global read and returns the shared :data:`NULL` handle."""
+def span(name: str, device: Optional[torch.device] = None, **attrs: Any):
+    """Open a span (use as a context manager); ``device``, where the
+    span's work runs, device-times it on a CUDA device.  With tracing
+    off this returns a host range on a recording profiler's timeline,
+    or, with no profiler either, the shared :data:`NULL` handle after
+    two global reads."""
     collector = _collector
     if collector is None:
-        return NULL
-    return Span(collector, name, attrs)
+        if not _profiler._is_profiler_enabled:
+            return NULL
+        return _Range(name)
+    return Span(collector, name, attrs, device)
 
 
 class _ForeignParent:
@@ -224,11 +321,13 @@ def start() -> None:
 
 
 def stop() -> "Trace":
-    """Uninstall the collector and return everything it recorded."""
+    """Uninstall the collector, resolve its spans and return everything
+    it recorded."""
     global _collector
     collector, _collector = _collector, None
     if collector is None:
         return Trace([], 0)
+    collector.resolve()
     with collector.lock:
         return Trace(list(collector.spans), collector.open_count)
 
@@ -247,9 +346,10 @@ def _swap(collector: Optional[_Collector]) -> Optional[_Collector]:
 
 @contextlib.contextmanager
 def tracing() -> Iterator[_Session]:
-    """Collect spans for a scope.  Reentrant under an env-enabled global
-    collector: the session then sees the spans finished inside the block
-    (a windowed view) and global collection keeps running afterwards."""
+    """Collect spans for a scope, resolved at its exit.  Reentrant under
+    an env-enabled global collector: the session then sees the spans
+    finished inside the block (a windowed view) and global collection
+    keeps running afterwards."""
     was_on = _collector is not None
     start()
     collector = _collector
@@ -260,6 +360,7 @@ def tracing() -> Iterator[_Session]:
     try:
         yield session
     finally:
+        collector.resolve()
         with collector.lock:
             spans = list(collector.spans[mark:])
             open_count = collector.open_count
@@ -283,7 +384,8 @@ class Trace:
     """An immutable bag of finished spans with export + assertion views.
 
     Each span is a dict: ``sid``, ``parent`` (sid or None), ``name``,
-    ``t0``/``t1`` (perf_counter seconds), ``tid``, ``attrs``.
+    ``t0``/``t1`` (perf_counter seconds), ``tid``, ``attrs``, and
+    ``device_s`` (stream seconds) where it was opened on a CUDA device.
     """
 
     #: attribute keys that count as byte traffic for aggregation
@@ -329,7 +431,8 @@ class Trace:
 
     def summary(self) -> Dict[str, Any]:
         """Aggregate tree keyed by span name along the parent path:
-        ``{name: {count, wall_s, attrs: {summed numerics}, children}}``.
+        ``{name: {count, wall_s, attrs: {summed numerics}, children}}``,
+        and the summed ``device_s`` in a node whose spans carry it.
         Spans whose parent lies outside this trace window root the tree.
         """
         by_sid = {s["sid"]: s for s in self.spans}
@@ -353,6 +456,8 @@ class Trace:
             leaf = node(level, path[-1])
             leaf["count"] += 1
             leaf["wall_s"] += s["t1"] - s["t0"]
+            if "device_s" in s:
+                leaf["device_s"] = leaf.get("device_s", 0.0) + s["device_s"]
             for key, value in s["attrs"].items():
                 if isinstance(value, (int, float)) and not isinstance(
                         value, bool):
@@ -368,6 +473,8 @@ class Trace:
             for key, value in s["attrs"].items():
                 args[key] = value if isinstance(
                     value, (int, float, str, bool)) else str(value)
+            if "device_s" in s:
+                args["device_s"] = s["device_s"]
             events.append({
                 "ph": "X", "cat": "repro", "name": s["name"],
                 "pid": pid, "tid": s["tid"],

@@ -37,9 +37,7 @@ fragments.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import time
 from typing import Mapping, Optional, Tuple
 
 import torch
@@ -50,7 +48,7 @@ from repro_torch.core.executor import PlanExecutor
 from repro_torch.core.fractal_sort import backend_name, make_backend
 from repro_torch.core.fractal_tree import as_u32_bits
 from repro_torch.core.sort_plan import SortPlan
-from repro_torch.obs import metrics, trace
+from repro_torch.obs import trace
 from repro_torch.query.codec import (
     _SIGN,
     Codec,
@@ -384,17 +382,11 @@ def sort_rowids_batched(words: torch.Tensor, bits: int, seg_len_log2: int,
     return _segmented_chain(active, plans, int(seg_len_log2), backend)(words)
 
 
-@contextlib.contextmanager
-def _op_scope(name: str, rows: int):
-    """Per-operator request scope: a ``query.<name>`` span (when tracing)
-    plus the latency histogram and request counter of the metrics
-    registry."""
-    t0 = time.perf_counter()
-    with trace.span(f"query.{name}", rows=rows):
-        yield
-    metrics.histogram(f"query.{name}.latency_s").observe(
-        time.perf_counter() - t0)
-    metrics.counter(f"query.{name}.requests").inc()
+def _op_scope(name: str, rows: int, device: torch.device):
+    """Per-operator request scope: a ``query.<name>`` span, device-timed
+    on the card; traced, its counts and quantiles land in the registry
+    (``span.query.<name>.wall_s`` / ``.device_s``)."""
+    return trace.span(f"query.{name}", device, rows=rows)
 
 
 def order_by(table: Table, by, codecs: Optional[Mapping[str, Codec]] = None,
@@ -411,7 +403,7 @@ def order_by(table: Table, by, codecs: Optional[Mapping[str, Codec]] = None,
     if stream is not None:
         return stream.stream_order_by(table, by, codecs, placement=placement,
                                       backend=backend)
-    with _op_scope("order_by", len(table)):
+    with _op_scope("order_by", len(table), table.device):
         codec, prepped = _key_data(table, by, codecs)
         _, rowids = sort_rowids_fused(codec, prepped, plans, backend=backend)
         return table.take(rowids)
@@ -459,7 +451,7 @@ def top_k(table: Table, by, k: int,
                                    backend=backend)
     if k <= 0:
         return table.head(0)
-    with _op_scope("top_k", len(table)):
+    with _op_scope("top_k", len(table), table.device):
         return _top_k_mem(table, by, k, codecs, plans, backend)
 
 
@@ -503,7 +495,7 @@ def distinct(table: Table, by=None,
     "first" well-defined)."""
     _check_in_memory(table, "distinct")
     by = _normalize_by(by if by is not None else table.column_names)
-    with _op_scope("distinct", len(table)):
+    with _op_scope("distinct", len(table), table.device):
         codec, prepped = _key_data(table, by, codecs)
         sorted_words, rowids = sort_rowids_fused(codec, prepped, plans,
                                                  backend=backend)
@@ -585,7 +577,7 @@ def group_by(table: Table, by, aggs: Mapping[str, Tuple[Optional[str], str]],
     for col, op in aggs.values():
         if op not in _AGGS:
             raise ValueError(f"bad aggregate {op!r}: one of {_AGGS}")
-    with _op_scope("group_by", len(table)):
+    with _op_scope("group_by", len(table), table.device):
         return _group_by_mem(table, by, aggs, codecs, plans, backend)
 
 
@@ -679,7 +671,8 @@ def sort_merge_join(left: Table, right: Table, on,
         if not asc:
             raise ValueError("join keys have no direction; use plain "
                              "column names")
-    with _op_scope("sort_merge_join", len(left) + len(right)):
+    with _op_scope("sort_merge_join", len(left) + len(right),
+                   left.device):
         return _join_mem(left, right, on, by, codecs, suffixes, plans,
                          backend)
 
