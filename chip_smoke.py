@@ -30,7 +30,7 @@ Phases, each fatal on failure:
    and count the tensor-core ``HMMA`` instructions of every K5 instance in
    the built library's SASS (``cuobjdump -sass``; fails on 0);
 3. every kernel (K1 histogram, K2 one-hot rank, K3 scatter rank, K4
-   reconstruct) against its plain PyTorch version on the card, bit-exact
+   reconstruct, the payload carry) against its plain PyTorch version on the card, bit-exact
    (tolerance 0: integer outputs), at n in {1, 1000, 2**20 + 37} and
    n_bins in {16, 256, 2**16}; K2 and K3 also over n in {1, 1000, 4095,
    4096, 4097, 8191, 8192, 8193, 2**20 + 37} (both look-back tiles are
@@ -50,7 +50,10 @@ Phases, each fatal on failure:
    16-byte boundary, with pads, with and without init; K1's one-sweep entry
    against per-digit plain histograms for the p = 32, 16, 7 and 8-bit
    plans at n in {1, 4097, 2**20 + 37}, aligned and not, with and without
-   init;
+   init; the payload carry (``fractal_scatter``) of int32 keys beside an
+   int32, int64, int16, uint8, bfloat16 and a (n, 3) float32 payload at n
+   in {1, 5, 1001, 2**20 + 37}, sources aligned and not, with the MSD
+   pass's mask and without, bit for bit;
 4. the main path at n = 2**log2n keys (default 2**27 = 512 MiB of uint32
    keys, the smallest data set of the paper's evaluation), generated from
    ``--seed``: ``fractal_sort`` at p = 32 and p = 16 on uniform and
@@ -70,7 +73,10 @@ Phases, each fatal on failure:
    (no count walk, no scan) and that one at 2**16 bins (the keys' high
    half, its counts given) runs the two-level path's four kernels and
    nothing else (each logged as not checked where the profiler traces no
-   device kernel), and the end-to-end sort time beside
+   device kernel); the payload carry of a 16-bin pass's ranks for keys
+   alone, keys with an int32 payload and keys under the t = 28 mask (its
+   yardstick ``Tensor.index_put_`` with an int64 index made beforehand,
+   which the port never calls); and the end-to-end sort time beside
    ``torch.sort``; K1's one sweep over the p = 32 plan's 8 digits; K2
    at 256 bins on a log line (the yardstick of K3 there); the log lines
    of the redesigned K1, K2 and K3 also name their first versions'
@@ -4081,6 +4087,7 @@ def main() -> int:
                                                   fractal_rank_scatter_kernel,
                                                   wide_hi_bins)
     from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
+    from repro_torch.kernels.fractal_scatter import fractal_scatter
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -4275,6 +4282,30 @@ def main() -> int:
         f"uniform/zipf/one-bin x offset, with and without init), its one "
         f"sweep over {sweep_cases} cases "
         f"(n x plan x offset x init)")
+    # the payload carry: keys beside a payload of each row width (both
+    # kernel paths), ragged n, sources off their 16-byte boundary, the
+    # MSD pass's mask and none; outputs compared bit for bit
+    scatter_cases = 0
+    for n in (1, 5, 1001, (1 << 20) + 37):
+        rank = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        keys = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n + 1)
+                                .astype(np.int32)).to(dev)
+        for pay in (keys, keys.long(), keys.to(torch.int16),
+                    keys.to(torch.uint8), keys.to(torch.bfloat16),
+                    torch.randn(n + 1, 3, device=dev)):
+            for off, t in itertools.product((0, 1), (None, 28)):
+                got = fractal_scatter(rank, keys[off:off + n],
+                                      pay[off:off + n], trailing_bits=t)
+                want = ref.scatter_ref(rank, keys[off:off + n],
+                                       pay[off:off + n], trailing_bits=t)
+                for g, w in zip(got, want):
+                    agree("fractal_scatter", g.view(torch.uint8),
+                          w.view(torch.uint8),
+                          f"n={n} {pay.dtype} {tuple(pay.shape[1:])} "
+                          f"offset {off} trailing_bits={t}")
+                scatter_cases += 1
+    log(f"[kernels] the scatter bit-exact over {scatter_cases} cases (n x "
+        f"payload width x offset x mask)")
     # the histogram's init carried over ragged chunks equals one histogram
     d = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 37).astype(np.int32)).to(dev)
     carried = None
@@ -4412,6 +4443,16 @@ def main() -> int:
                                 msd.n_bins)
     cdf = torch.cumsum(mcounts, 0, dtype=torch.int32)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
+    # the payload carry of a 16-bin pass; torch's index write with the
+    # int64 index made beforehand is its yardstick (the port calls none)
+    srank = fractal_rank_kernel(d16, s16, 16)
+    sidx = srank.long()
+    souts = (torch.empty_like(kbits), torch.empty_like(kbits))
+
+    def index_put(*arrays):
+        return tuple(o.index_put_((sidx,), a) for o, a in zip(souts, arrays))
+
+    trail_mask = (1 << msd.shift) - 1
     rows = [
         ("fractal_histogram", "fractal_histogram.cu",
          "src/repro/kernels/fractal_histogram.py:88",
@@ -4445,6 +4486,24 @@ def main() -> int:
          lambda: torch.searchsorted(cdf, slots, right=True),
          4 * n + 4 * msd.n_bins + 4 * n,
          f"n=2**{args.log2n}, {msd.n_bins} bins, t={msd.shift}"),
+        ("fractal_scatter", "fractal_scatter.cu", "none (array code)",
+         lambda: fractal_scatter(srank, kbits),
+         lambda: ref.scatter_ref(srank, kbits),
+         lambda: index_put(kbits),
+         n * (4 + 4 + 4), f"n=2**{args.log2n}, keys, 16-bin ranks"),
+        ("fractal_scatter", "fractal_scatter.cu", "none (array code)",
+         lambda: fractal_scatter(srank, kbits, slots),
+         lambda: ref.scatter_ref(srank, kbits, slots),
+         lambda: index_put(kbits, slots),
+         n * (4 + 8 + 8),
+         f"n=2**{args.log2n}, keys + int32 payload, 16-bin ranks"),
+        ("fractal_scatter", "fractal_scatter.cu", "none (array code)",
+         lambda: fractal_scatter(srank, kbits, trailing_bits=msd.shift),
+         lambda: ref.scatter_ref(srank, kbits, trailing_bits=msd.shift),
+         lambda: index_put(kbits & trail_mask),
+         n * (4 + 4 + 4),
+         f"n=2**{args.log2n}, keys with the t={msd.shift} mask, 16-bin "
+         f"ranks"),
     ]
     table = []
     for name, src, replaces, kern, plain, lib, nbytes, shape in rows:
@@ -4506,7 +4565,7 @@ def main() -> int:
     check_k2_wide(lambda: fractal_rank_kernel(dhi, shi, 1 << 16, counts=chi),
                   f"n=2**{args.log2n}, 2**16 bins, counts given")
     del dhi, chi, shi
-    del d16, d256, sorted_keys, trail, slots
+    del d16, d256, sorted_keys, trail, slots, srank, sidx, souts
 
     # the 16b+16b plan's shapes at n = 2**24: 2**16-bin digits, MSD t = 16
     lsd, msd16 = plan16.passes

@@ -8,9 +8,10 @@ delegates the per-pass primitives to a pluggable :class:`PassBackend`:
   serial rank engines of :mod:`repro_torch.core.fractal_sort`, on any
   device;
 * :class:`CudaBackend` — the hand-written Hopper kernels (histogram K1,
-  one-hot rank K2, scatter rank K3, reconstruct K4) from
-  :mod:`repro_torch.kernels` (the reference's ``PallasBackend``).  On CPU
-  tensors the kernel wrappers compute their plain versions;
+  one-hot rank K2, scatter rank K3, reconstruct K4, and the payload
+  carry) from :mod:`repro_torch.kernels` (the reference's
+  ``PallasBackend``).  On CPU tensors the kernel wrappers compute their
+  plain versions;
 * :class:`DistributedBackend` — one collective pass per plan digit over a
   ``torch.distributed`` group, each rank ranking its shard on a local
   backend (:mod:`repro_torch.core.distributed`).
@@ -225,7 +226,9 @@ class CudaBackend(PassBackend):
     pass's counts, which its two-level path above 256 bins needs), K4
     reconstruct.  ``block`` is the reference's rank block (the kernels
     tile for themselves).  A streaming ``carry_in`` is folded into the bin
-    starts the rank kernel takes (rank = bin start + carry + arrival)."""
+    starts the rank kernel takes (rank = bin start + carry + arrival).
+    The payload carry is the scatter kernel
+    (:mod:`repro_torch.kernels.fractal_scatter`)."""
 
     def __init__(self, block: int = 1024):
         self.block = block
@@ -269,6 +272,16 @@ class CudaBackend(PassBackend):
         from repro_torch.kernels.fractal_histogram import fractal_histogram
 
         return fractal_histogram(digit, n_bins, init=init)
+
+    def scatter(self, rank, *arrays, trailing_bits=None):
+        """The payload carry kernel: every array in one launch over the
+        int32 ranks, the trailing mask applied on the way, no output
+        filled (every caller's ranks are a permutation of ``[0, n)``)."""
+        from repro_torch.kernels.fractal_scatter import fractal_scatter
+
+        with trace.span("executor.scatter", rank.device):
+            return fractal_scatter(rank, *(a.contiguous() for a in arrays),
+                                   trailing_bits=trailing_bits)
 
     def reconstruct(self, counts, trailing, plan):
         from repro_torch.kernels.fractal_reconstruct import (

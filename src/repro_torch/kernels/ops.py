@@ -26,6 +26,8 @@ from repro_torch.kernels.fractal_rank import (
     fractal_rank_scatter_kernel as _rank_scatter)
 from repro_torch.kernels.fractal_reconstruct import (
     fractal_reconstruct as _recon)
+from repro_torch.kernels.fractal_scatter import (
+    fractal_scatter as _scatter)
 from repro_torch.kernels.moe_dispatch import moe_dispatch as _dispatch
 from repro_torch.obs import trace
 
@@ -51,15 +53,17 @@ KERNELS = {
     "fractal_rank_kernel": _rank,
     "fractal_rank_scatter_kernel": _rank_scatter,
     "fractal_reconstruct": _recon,
+    "fractal_scatter": _scatter,
     "flash_attention_kernel": _flash,
 }
-#: the kernels of the sort path (K1-K4; "fractal_histogram" counts every
-#: K1 launch, "fractal_histogram_digits" its one-sweep launches and
-#: "fractal_histogram_cluster" its launches above 2**14 bins too); K5
-#: runs on the LM's prefill path, and MoE dispatch launches K1 and K2
+#: the kernels of the sort path (K1-K4 and the payload carry;
+#: "fractal_histogram" counts every K1 launch, "fractal_histogram_digits"
+#: its one-sweep launches and "fractal_histogram_cluster" its launches
+#: above 2**14 bins too); K5 runs on the LM's prefill path, and MoE
+#: dispatch launches K1 and K2
 SORT_KERNELS = ("fractal_histogram", "fractal_histogram_digits",
                 "fractal_rank_kernel", "fractal_rank_scatter_kernel",
-                "fractal_reconstruct")
+                "fractal_reconstruct", "fractal_scatter")
 
 
 def launch_counts() -> dict:

@@ -12,12 +12,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.executor import _signed
 from repro_torch.core.fractal_tree import (as_u32_bits, exclusive_cumsum,
                                            wrap_int32)
 
 __all__ = ["histogram_ref", "digit_histograms_ref", "rank_ref",
-           "reconstruct_ref", "moe_dispatch_ref", "moe_ranks_ref",
-           "flash_attention_ref"]
+           "reconstruct_ref", "scatter_ref", "moe_dispatch_ref",
+           "moe_ranks_ref", "flash_attention_ref"]
 
 
 def histogram_ref(keys: torch.Tensor, n_bins: int,
@@ -77,6 +78,23 @@ def reconstruct_ref(counts: torch.Tensor, trailing: torch.Tensor,
     slot_bin = torch.searchsorted(ends, slots, right=True)
     return wrap_int32((slot_bin << t_bits)
                       | (trailing.to(torch.int64) & 0xFFFFFFFF))
+
+
+def scatter_ref(rank: torch.Tensor, *arrays: torch.Tensor,
+                trailing_bits: Optional[int] = None) -> tuple:
+    """Each array's rows at their ranks, ``out[rank[i]] = a[i]``, in a
+    zero-filled output (a slot no rank names stays 0); the first array
+    keeps only its low ``trailing_bits`` bits when given."""
+    idx = rank.long()
+    outs = []
+    for k, a in enumerate(arrays):
+        src = _signed(a)
+        if k == 0 and trailing_bits is not None:
+            src = src & ((1 << trailing_bits) - 1)
+        out = torch.zeros_like(src)
+        out[idx] = src
+        outs.append(out.view(a.dtype))
+    return tuple(outs)
 
 
 def moe_dispatch_ref(expert_ids: torch.Tensor, num_experts: int) -> tuple:

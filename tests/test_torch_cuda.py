@@ -17,9 +17,10 @@ import torch
 from repro_torch import query as tq
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import (CudaBackend, DigitPass, PlanExecutor,
-                              TorchBackend, dispatch, fractal_argsort,
-                              fractal_sort, fractal_sort_batched,
-                              fractal_sort_pairs, make_sort_plan)
+                              TorchBackend, dispatch, exclusive_cumsum,
+                              fractal_argsort, fractal_sort,
+                              fractal_sort_batched, fractal_sort_pairs,
+                              make_sort_plan)
 from repro_torch.kernels import fractal_histogram as hist_mod
 from repro_torch.kernels import fractal_rank as rank_mod
 from repro_torch.kernels import ops, ref
@@ -31,6 +32,7 @@ from repro_torch.kernels.fractal_histogram import (digit_histograms,
 from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
                                               fractal_rank_scatter_kernel)
 from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
+from repro_torch.kernels.fractal_scatter import fractal_scatter
 from repro_torch.models import layers as L
 
 pytestmark = pytest.mark.cuda
@@ -243,6 +245,105 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fractal_histogram_digits(keys, (DigitPass(0, 16), DigitPass(16, 16)))
     with pytest.raises(ValueError):  # a CPU operand next to a CUDA one
         fractal_histogram(keys, 16, init=torch.zeros(16, dtype=torch.int32))
+    rank = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):  # the scatter reads int32 ranks
+        fractal_scatter(rank.long(), keys)
+    with pytest.raises(ValueError):  # an array of another length
+        fractal_scatter(rank, keys[:63])
+    with pytest.raises(ValueError):  # a CPU array next to CUDA ones
+        fractal_scatter(rank, keys, torch.zeros(64, dtype=torch.int32))
+
+
+_SCATTER_PAYLOADS = ("int32", "uint32", "int64", "uint64", "int16", "uint8",
+                     "float32", "bfloat16", "float32x3")
+
+
+def _payload(rng, name: str, n: int) -> torch.Tensor:
+    """A payload of ``n`` rows: a 1-D array of the dtype ``name``, or
+    ``float32x3``, a 2-D array of 12-byte rows."""
+    if name == "float32x3":
+        return torch.from_numpy(rng.standard_normal((n, 3), np.float32))
+    return torch.from_numpy(rng.integers(0, 1 << 7, n)).to(
+        getattr(torch, name))
+
+
+@pytest.mark.parametrize("payload", _SCATTER_PAYLOADS)
+@pytest.mark.parametrize("trailing_bits", [None, 28])
+def test_scatter_kernel_matches_plain_version(rng, cuda_device, payload,
+                                              trailing_bits):
+    """Keys and a payload of every row width in one launch, at n below
+    one 8192-row tile and across tiles with a partial last one, from
+    sources with a storage offset (the rows path) and without, the keys
+    masked or not."""
+    for n in (1, 3, 1001, 100_003):
+        rank = torch.from_numpy(rng.permutation(n).astype(np.int32))
+        keys = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n + 1)
+                                .astype(np.int32))
+        pay = _payload(rng, payload, n + 1)
+        on_card = rank.to(cuda_device), keys.to(cuda_device), pay.to(
+            cuda_device)
+        for off in (0, 1):
+            want = ref.scatter_ref(rank, keys[off:off + n], pay[off:off + n],
+                                   trailing_bits=trailing_bits)
+            got = fractal_scatter(on_card[0], on_card[1][off:off + n],
+                                  on_card[2][off:off + n],
+                                  trailing_bits=trailing_bits)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert torch.equal(g.cpu().view(torch.uint8),
+                                   w.view(torch.uint8)), (n, off)
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+def test_scatter_kernel_groups_every_count_of_word_arrays(rng, cuda_device,
+                                                          count):
+    """1 to 4 arrays of 4-byte rows (the grouped path) under a pass's
+    stable 4-bit ranks and under a random permutation."""
+    n = 3 * 8192 + 5
+    keys = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n)
+                            .astype(np.int32)).to(cuda_device)
+    arrays = [keys] + [torch.from_numpy(rng.integers(0, 1 << 30, n).astype(
+        np.int32)).to(cuda_device) for _ in range(count - 1)]
+    d = (keys >> 4) & 15
+    start = exclusive_cumsum(ref.histogram_ref(d, 16))
+    for rank in (fractal_rank_kernel(d, start, 16),
+                 torch.randperm(n, device=cuda_device).to(torch.int32)):
+        for t in (None, 28):
+            got = fractal_scatter(rank, *arrays, trailing_bits=t)
+            want = ref.scatter_ref(rank, *arrays, trailing_bits=t)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_scatter_kernel_many_arrays_one_rank(rng, cuda_device):
+    """More arrays than one launch carries, of mixed widths; each launch
+    counted."""
+    n = 4099
+    rank = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    arrays = [_payload(rng, name, n) for name in _SCATTER_PAYLOADS] * 2
+    ops.reset_launch_counts()
+    got = fractal_scatter(rank.to(cuda_device),
+                          *(a.to(cuda_device) for a in arrays))
+    assert ops.launch_counts()["fractal_scatter"] == 3  # 18 arrays, 8 a launch
+    for g, w in zip(got, ref.scatter_ref(rank, *arrays)):
+        assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8))
+
+
+@pytest.mark.parametrize("payload", ["int64", "float32x5"])
+def test_sort_pairs_carries_wide_payloads_through_the_kernel(rng, cuda_device,
+                                                             payload):
+    """An int64 payload and a 2-D float32 one ride every pass's scatter
+    (the kernel's rows path)."""
+    n = 200_003
+    keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    order = np.argsort(keys, kind="stable")
+    vals = (rng.integers(-(1 << 62), 1 << 62, n) if payload == "int64"
+            else rng.standard_normal((n, 5)).astype(np.float32))
+    ops.reset_launch_counts()
+    sk, sv = fractal_sort_pairs(torch.from_numpy(keys).to(cuda_device),
+                                torch.from_numpy(vals).to(cuda_device), 32)
+    assert ops.launch_counts()["fractal_scatter"] > 0
+    np.testing.assert_array_equal(sk.cpu().numpy(), keys[order])
+    np.testing.assert_array_equal(sv.cpu().numpy(), vals[order])
 
 
 @pytest.mark.parametrize("shape", [(2, 100, 2, 32, 100), (1, 70, 3, 64, 129),
