@@ -537,6 +537,33 @@ def test_digit_histograms_one_sweep(rng, cuda_device, plan):
                     assert torch.equal(g, w), (plan, n, off)
 
 
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "one_bin"])
+def test_sweep_counts_hot_bins_exactly(rng, cuda_device, dist):
+    """The 8 x 4-bit plan's sweep against per-digit ``torch.bincount``
+    on uniform keys, Zipf(1.2) keys clamped to 32 bits (0.2 to 0.98 of
+    them in one bin of a digit: the ``paper-p32-zipf`` deployment) and
+    every key in one bin; whole, and with an unaligned head and a ragged
+    tail."""
+    n = (1 << 22) + 13
+    if dist == "zipf":
+        raw = np.minimum(rng.zipf(1.2, n), (1 << 32) - 1)
+    elif dist == "one_bin":
+        raw = np.full(n, 0x12345678)
+    else:
+        raw = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    keys = torch.from_numpy(raw.astype(np.uint32)).to(cuda_device)
+    passes = make_sort_plan(n, 32).passes
+    assert [(dp.shift, dp.bits) for dp in passes] == [(4 * i, 4)
+                                                     for i in range(8)]
+    for part in (keys, keys[3:n - 5]):
+        values = part.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        got = fractal_histogram_digits(part, passes)
+        for dp, g in zip(passes, got):
+            want = torch.bincount((values >> dp.shift) & (dp.n_bins - 1),
+                                  minlength=dp.n_bins).to(torch.int32)
+            assert torch.equal(g, want), (dist, dp.shift, part.numel())
+
+
 def test_digit_histograms_wide_plan_one_launch_per_digit(rng, cuda_device):
     """The 16b+16b plan (2 x 2**16 bins) does not fit the sweep: one
     single-digit launch per digit."""

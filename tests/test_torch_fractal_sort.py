@@ -195,11 +195,18 @@ def _dist(rng, dist, n, p):
     return k.astype(np.uint64).astype(np.uint32)
 
 
-@pytest.mark.parametrize("dist", ["all_equal", "two_value", "two_hot", "ramp",
-                                  "zipf", "reverse"])
-@pytest.mark.parametrize("p", [16, 32])
-def test_adversarial_distributions_match_reference(rng, p, dist):
-    n = 4096
+ADVERSARIAL = [(p, dist, 4096) for p in (16, 32)
+               for dist in ("all_equal", "two_value", "two_hot", "ramp",
+                            "zipf", "reverse")]
+# Zipf(1.2) at p = 32 on 2**16 keys: the skewed deployment's keys, where
+# nine in ten are ties and the high digits sit in one bin
+ADVERSARIAL.append((32, "zipf", 1 << 16))
+
+
+@pytest.mark.parametrize(
+    "p,dist,n", ADVERSARIAL,
+    ids=[f"{p}-{d}" + ("" if n == 4096 else f"-{n}") for p, d, n in ADVERSARIAL])
+def test_adversarial_distributions_match_reference(rng, p, dist, n):
     keys = _dist(rng, dist, n, p)
     jk = _jax_keys(keys, p)
     jplan = jsp.make_sort_plan(n, p)
