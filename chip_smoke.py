@@ -78,9 +78,12 @@ Phases, each fatal on failure:
    yardstick ``Tensor.index_put_`` with an int64 index made beforehand,
    which the port never calls); and the end-to-end sort time beside
    ``torch.sort``; K1's one sweep over the p = 32 plan's 8 digits; K2
-   at 256 bins on a log line (the yardstick of K3 there); the log lines
-   of the redesigned K1, K2 and K3 also name their first versions'
-   times, constants of earlier runs that no metric reads; with
+   at 256 bins on a log line (the yardstick of K3 there); K2 at 16 bins
+   on the key stream (the digit taken in the kernel, as a sort's passes
+   run it, at shift 4 and 28) in the table beside its bound and plain
+   version, and extraction plus K2 on the digit stream on a log line;
+   the log lines of the redesigned K1, K2 and K3 also name their first
+   versions' times, constants of earlier runs that no metric reads; with
    ``--profile``, the device time of one call of K1, its sweep and K3;
 
 then, with the sort data freed and TF32 off for float32 matmuls:
@@ -4435,6 +4438,8 @@ def main() -> int:
     c16 = fractal_histogram(d16, 16)
     c256 = fractal_histogram(d256, 256)
     s16, s256 = exclusive_cumsum(c16), exclusive_cumsum(c256)
+    # the MSD pass's bin starts (its digit at t = 28)
+    s28 = exclusive_cumsum(fractal_histogram((kbits >> 28) & 15, 16))
     plan32 = make_sort_plan(n, 32)
     msd = plan32.passes[-1]  # depth 4, t = 28
     sorted_keys = fractal_sort(keys, 32).view(torch.int32)
@@ -4473,6 +4478,22 @@ def main() -> int:
          lambda: ref.rank_ref(d16, s16, 16),
          lambda: torch.sort(d16, stable=True),
          4 * n + 4 * 16 + 4 * n, f"n=2**{args.log2n}, 16 bins"),
+        # K2 on the key stream, the digit taken in its registers, as a
+        # sort's LSD pass (shift 4) and its MSD pass (shift 28) run it
+        ("fractal_rank_kernel", "fractal_rank.cu",
+         "src/repro/kernels/fractal_rank.py:81",
+         lambda: fractal_rank_kernel(kbits, s16, 16, shift=4),
+         lambda: ref.rank_ref(ref.digit_ref(kbits, 4, 15), s16, 16),
+         lambda: torch.sort(d16, stable=True),
+         4 * n + 4 * 16 + 4 * n,
+         f"n=2**{args.log2n}, 16 bins, the key stream at shift 4"),
+        ("fractal_rank_kernel", "fractal_rank.cu",
+         "src/repro/kernels/fractal_rank.py:81",
+         lambda: fractal_rank_kernel(kbits, s28, 16, shift=28),
+         lambda: ref.rank_ref(ref.digit_ref(kbits, 28, 15), s28, 16),
+         lambda: torch.sort((kbits >> 28) & 15, stable=True),
+         4 * n + 4 * 16 + 4 * n,
+         f"n=2**{args.log2n}, 16 bins, the key stream at shift 28"),
         ("fractal_rank_scatter_kernel", "fractal_rank.cu",
          "src/repro/kernels/fractal_rank.py:150",
          lambda: fractal_rank_scatter_kernel(d256, s256, 256),
@@ -4531,7 +4552,8 @@ def main() -> int:
             f"{entry['bound_ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
             f"library " + ("none" if lib_ms is None else f"{lib_ms:.3f} ms")
             + (f"; earlier run: first version {FIRST_VERSION_MS[name]} ms"
-               if name in FIRST_VERSION_MS else ""))
+               if name in FIRST_VERSION_MS
+               and all(e["name"] != name for e in table[:-1]) else ""))
     if args.profile:  # the redesigned kernels' own device time
         log(json.dumps({"profile_kernels": {
             name: profile_call(kern, top=3) for name, _, _, kern, *_ in rows
@@ -4541,6 +4563,14 @@ def main() -> int:
     log(f"[time] fractal_rank_kernel (n=2**{args.log2n}, 256 bins, the "
         f"yardstick of K3 there): "
         f"{cuda_ms(lambda: fractal_rank_kernel(d256, s256, 256)):.3f} ms")
+    # what a sort's pass spent on the digit before K2 took it from the
+    # key stream: the extraction and K2 on the digit stream
+    log(f"[time] fractal_rank_kernel (n=2**{args.log2n}, 16 bins): "
+        f"extraction + the digit stream at shift 4 "
+        f"{cuda_ms(lambda: fractal_rank_kernel((kbits >> 4) & 15, s16, 16)):.3f}"
+        f" ms, at shift 28 "
+        f"{cuda_ms(lambda: fractal_rank_kernel((kbits >> 28) & 15, s28, 16)):.3f}"
+        f" ms")
     # K2 at 16 bins is one launch of its own: no count walk, no scan
     names = kernel_names(lambda: fractal_rank_kernel(d16, s16, 16))
     if names is None:
@@ -4565,7 +4595,7 @@ def main() -> int:
     check_k2_wide(lambda: fractal_rank_kernel(dhi, shi, 1 << 16, counts=chi),
                   f"n=2**{args.log2n}, 2**16 bins, counts given")
     del dhi, chi, shi
-    del d16, d256, sorted_keys, trail, slots, srank, sidx, souts
+    del d16, d256, s28, sorted_keys, trail, slots, srank, sidx, souts
 
     # the 16b+16b plan's shapes at n = 2**24: 2**16-bin digits, MSD t = 16
     lsd, msd16 = plan16.passes

@@ -16,9 +16,13 @@ delegates the per-pass primitives to a pluggable :class:`PassBackend`:
   ``torch.distributed`` group, each rank ranking its shard on a local
   backend (:mod:`repro_torch.core.distributed`).
 
-Executor responsibilities (backend-independent): digit extraction, pass
-sequencing (stable LSD digit passes, then the fractal MSD pass), payload
-carry (full keys through LSD passes, the argsort permutation, or only the
+Executor responsibilities (backend-independent): pass sequencing (stable
+LSD digit passes, then the fractal MSD pass), each pass's digit rank
+(:meth:`PassBackend.rank_pass`: digit extraction, then the backend's rank;
+:class:`CudaBackend` ranks with
+:func:`~repro_torch.kernels.fractal_rank.fractal_rank_digit`, which hands
+K2 the key stream where it can), payload carry
+(full keys through LSD passes, the argsort permutation, or only the
 trailing-bit entries into the MSD scatter), the final Algorithm-5
 reconstruct, and the empty-input guard.
 
@@ -28,7 +32,9 @@ bits above bit ``31 - shift``, which the mask drops.
 
 Spans (:mod:`repro_torch.obs.trace`, device-timed on the card): each
 pass is an ``executor.pass`` whose phases are ``executor.digit`` (digit
-extraction), ``executor.rank`` (the backend's rank call),
+extraction, where the pass extracts one), ``executor.rank`` (the
+backend's rank call; a pass whose digit K2 took from the key stream is
+counted on the registry's ``executor.rank.digit_in_kernel``),
 ``executor.scatter`` (the payload carry) and, in the MSD pass,
 ``executor.reconstruct``; ``executor.histogram`` is the one K1 sweep
 before the pass loop.  Each opens where its work runs, so every mode
@@ -44,7 +50,7 @@ import torch
 from repro_torch.core.fractal_tree import (as_u32_bits, exclusive_cumsum,
                                           u32_to_int64)
 from repro_torch.core.sort_plan import DigitPass, SortPlan
-from repro_torch.obs import trace
+from repro_torch.obs import metrics, trace
 
 __all__ = [
     "PassBackend",
@@ -66,6 +72,9 @@ def _signed(t: torch.Tensor) -> torch.Tensor:
     signed = _SIGNED_VIEW.get(t.dtype)
     return t if signed is None else t.view(signed)
 
+
+# Passes whose digit K2 took from the key stream (CudaBackend.rank_pass)
+_DIGIT_IN_KERNEL = metrics.counter("executor.rank.digit_in_kernel")
 
 # Cells of a segment table one histogram call counts: K1's widest
 # histogram, so a wider table takes one K1 launch per slice.
@@ -133,6 +142,15 @@ class PassBackend:
         :meth:`rank` counts its own digit.  None by default."""
         return None
 
+    def rank_pass(self, u: torch.Tensor, dp: DigitPass,
+                  counts: Optional[torch.Tensor] = None):
+        """:meth:`rank` of pass ``dp``'s digit of the key stream ``u``
+        (``counts``: the digit's counts from :meth:`plan_counts`, if any):
+        the digit extracted, then ranked."""
+        return self.rank(_digit_of(u, dp), dp.n_bins,
+                         batch_hint=dp.rank_batch(self.rank_base),
+                         engine=dp.engine, counts=counts)
+
     def histogram(self, digit: torch.Tensor, n_bins: int,
                   init: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Bin counts of one digit stream added onto ``init``; values
@@ -168,9 +186,7 @@ class PassBackend:
         """One stable counting pass moving the keys and every payload to
         the digit's rank order (``counts``: the digit's counts from
         :meth:`plan_counts`, if any).  Returns ``(u, *payloads)``."""
-        rank, _, _ = self.rank(_digit_of(u, dp), dp.n_bins,
-                               batch_hint=dp.rank_batch(self.rank_base),
-                               engine=dp.engine, counts=counts)
+        rank, _, _ = self.rank_pass(u, dp, counts)
         return self.scatter(rank, u, *payloads)
 
     def reconstruct(self, counts: torch.Tensor, trailing: torch.Tensor,
@@ -255,6 +271,22 @@ class CudaBackend(PassBackend):
                 engine=engine, counts=counts)
             return rank, counts, (carry if carry_in is None
                                   else carry_in + counts)
+
+    def rank_pass(self, u, dp, counts=None):
+        """K2 on the key stream itself, taking each key's digit in its
+        registers, where the digit fits K2's one sweep and the pass runs on
+        K2 (:func:`~repro_torch.kernels.fractal_rank.ranks_key_stream`);
+        else the digit is extracted first (K3, K2's two-level path)."""
+        from repro_torch.kernels.fractal_rank import (fractal_rank_digit,
+                                                      ranks_key_stream)
+
+        if not ranks_key_stream(dp):
+            return super().rank_pass(u, dp, counts)
+        with trace.span("executor.rank", u.device):
+            rank, counts = fractal_rank_digit(u, dp, block=self.block,
+                                              counts=counts)
+        _DIGIT_IN_KERNEL.inc()
+        return rank, counts, counts
 
     def plan_counts(self, u, plan):
         """One K1 sweep over the key stream when the plan's bins fit it
@@ -375,13 +407,6 @@ class PlanExecutor:
             span.end_device()
             torch.cuda.synchronize()
 
-    def _msd_rank(self, u: torch.Tensor, last: DigitPass,
-                  counts: Optional[torch.Tensor]):
-        return self.backend.rank(
-            _digit_of(u, last), last.n_bins,
-            batch_hint=last.rank_batch(self.backend.rank_base),
-            engine=last.engine, counts=counts)
-
     def _plan_counts(self, u: torch.Tensor, plan: SortPlan) -> tuple:
         """Each pass's counts from the backend's hook, or Nones."""
         counts = self.backend.plan_counts(u, plan)
@@ -419,7 +444,8 @@ class PlanExecutor:
                 if pass_stats is not None:
                     self._sync(sp, out)
                 return out
-            rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
+            rank, counts, _ = self.backend.rank_pass(u, last,
+                                                     pass_counts[-1])
             if last.shift:
                 # compressed entries: only the trailing bits travel; the
                 # prefix is rebuilt from bin positions.
@@ -465,7 +491,8 @@ class PlanExecutor:
                 if pass_stats is not None:
                     self._sync(sp, keys_out, *payloads)
                 return keys_out, (payloads[0] if single else tuple(payloads))
-            rank, counts, _ = self._msd_rank(u, last, pass_counts[-1])
+            rank, counts, _ = self.backend.rank_pass(u, last,
+                                                     pass_counts[-1])
             if last.shift:
                 trailing, *payloads = self.backend.scatter(
                     rank, u, *payloads, trailing_bits=last.shift)

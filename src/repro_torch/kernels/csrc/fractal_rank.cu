@@ -24,7 +24,10 @@
 // the block then looks back over its predecessors' words, many at once
 // (adding aggregates until it meets a "prefix"), and publishes the
 // inclusive prefix.  rank = bin_start + this bin's keys in earlier tiles
-// + rank within the tile: one launch, and the digits are read once.  What
+// + rank within the tile: one launch, and the digits are read once.  A
+// sort's pass hands it the key stream and the pass's (shift, mask) instead
+// of a digit stream: each key's digit is taken in registers after its tile
+// is staged, so no elementwise pass writes a digit stream first.  What
 // bounds it in practice is the in-tile ranking (instructions a key) and
 // blocks waiting on the look-back, not the bytes: a copy of the same 8n
 // bytes is faster.
@@ -269,6 +272,9 @@ constexpr int kHiSmem =
 // kBits: digit bits (n_bins <= 2^kBits).  vec: keys and rank are 16-byte
 // aligned (whole tiles load and store 16 bytes a thread).
 //
+// kLbPlain ranks each key's digit ((uint32_t)key >> shift) & mask, taken
+// as the staged tile is read (a digit stream: shift 0, mask ~0).
+//
 // Rank within the tile, by digit width:
 //   - up to 16 bins (kBits 4): thread t takes keys [32t, 32t + 32) and
 //     counts them in registers (four words of 8-bit counters), keeping
@@ -283,8 +289,8 @@ constexpr int kHiSmem =
 //     lowest lane of each group advances the warp's count of that bin in
 //     shared memory, and a per-bin prefix over the warps follows.
 // Either way each slot of s_keys then holds a valid key's rank among the
-// keys of its bin before the thread's (or warp's) first, << kShift | key,
-// or -1.
+// keys of its bin before the thread's (or warp's) first, << kShift | its
+// digit, or -1.
 //
 // The two-level path's levels keep the whole 16-bit digit in a slot
 // (kShift 16) and take a key as valid below wide.n_digits:
@@ -306,7 +312,7 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
                      int32_t* __restrict__ rank, int n_bins,
                      unsigned long long* status,
                      unsigned long long* tile_counter, int vec,
-                     WideArgs wide) {
+                     WideArgs wide, int shift, uint32_t mask) {
   constexpr bool kThreadCounts = kBits <= 4;
   constexpr int kGroupKeys = kThreadCounts ? kLbItems : kLbWarpKeys;
   constexpr int kShift = kMode == kLbPlain ? 8 : 16;
@@ -323,7 +329,15 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
   __shared__ int s_tile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // a key's bin, -1 for a key that has none
+  // the digit of a staged key: (key >> shift) & mask on its uint32 bits
+  // (kLbPlain; a digit stream passes shift 0 and mask ~0, the key itself)
+  auto digit_of = [&](int key) -> int {
+    if constexpr (kMode == kLbPlain)
+      return (int)(((uint32_t)key >> shift) & mask);
+    else
+      return key;
+  };
+  // a digit's bin, -1 for a digit that has none
   auto bin_of = [&](int key) -> int {
     if constexpr (kMode == kLbPlain)
       return key;
@@ -368,7 +382,7 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
       int kv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int key = kv[u], bin = bin_of(key);
+        const int key = digit_of(kv[u]), bin = bin_of(key);
         const bool valid = (unsigned)bin < (unsigned)n_bins &&
                            kLbItems * tid + 4 * j + u < len;
         const int q = bin >> 2, sh = 8 * (bin & 3);
@@ -420,7 +434,7 @@ lookback_rank_kernel(const int32_t* __restrict__ keys, int n,
 #pragma unroll 4
     for (int i = 0; i < kLbItems; ++i) {
       const int pos = warp * kLbWarpKeys + 32 * i + lane;
-      const int key = pos < len ? s_keys[swizzle(pos)] : -1;
+      const int key = pos < len ? digit_of(s_keys[swizzle(pos)]) : -1;
       const int bin = bin_of(key);
       const bool valid = (unsigned)bin < (unsigned)n_bins;
       unsigned peers = __ballot_sync(fs::kFullMask, valid);
@@ -952,12 +966,15 @@ FS_EXPORT int fs_rank_lookback_tile() { return kLbTile; }
 
 // K2 up to 256 bins: ranks in one launch.  `status` holds
 // ceil(n / fs_rank_lookback_tile()) * n_bins + 1 zeroed 64-bit words (the
-// per-tile status words, then the tile counter).
+// per-tile status words, then the tile counter).  A key's digit is
+// ((uint32_t)key >> shift) & mask (a digit stream: shift 0, mask ~0).
 FS_EXPORT int fs_rank_lookback(const void* keys, long long n,
                                const void* bin_start, void* rank, int n_bins,
-                               void* status, void* stream) {
+                               void* status, int shift, unsigned mask,
+                               void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (n_bins < 1 || n_bins > kLbMaxBins || n >= (1LL << 31))
+  if (n_bins < 1 || n_bins > kLbMaxBins || n >= (1LL << 31) || shift < 0 ||
+      shift > 31)
     return (int)cudaErrorInvalidValue;
   const long long tiles = (n + kLbTile - 1) / kLbTile;
   auto* words = (unsigned long long*)status;
@@ -966,7 +983,8 @@ FS_EXPORT int fs_rank_lookback(const void* keys, long long n,
   kernel<<<(unsigned)tiles, kLbThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)keys, (int)n, (const int32_t*)bin_start,
       (int32_t*)rank, n_bins, words, words + tiles * n_bins,
-      (uintptr_t)keys % 16 == 0 && (uintptr_t)rank % 16 == 0, WideArgs{});
+      (uintptr_t)keys % 16 == 0 && (uintptr_t)rank % 16 == 0, WideArgs{},
+      shift, (uint32_t)mask);
   return (int)cudaGetLastError();
 }
 
@@ -1009,11 +1027,11 @@ FS_EXPORT int fs_rank_wide(const void* keys, long long n, const void* counts,
                        kHiSmem);
   level1<<<(unsigned)tiles, kLbThreads, kHiSmem, st>>>(
       (const int32_t*)keys, (int)n, hi_start, (int32_t*)rank, n_hi, status1,
-      status1 + tiles * n_hi, (uintptr_t)keys % 16 == 0, wide);
+      status1 + tiles * n_hi, (uintptr_t)keys % 16 == 0, wide, 0, ~0u);
 
   lookback_rank_kernel<8, kLbLo><<<(unsigned)tiles, kLbThreads, 0, st>>>(
       wide.stream, (int)n, zeros, within, kLoBins, status2,
-      status2 + tiles * kLoBins, 1, wide);
+      status2 + tiles * kLoBins, 1, wide, 0, ~0u);
 
   wide_unstage_kernel<<<(unsigned)tiles, kUnstageThreads, 0, st>>>(
       within, wide.runs, (int32_t*)rank, (int)n, n_hi,

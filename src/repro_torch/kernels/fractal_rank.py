@@ -19,9 +19,15 @@ scan over a tile-major ``(tiles, n_bins)`` table of per-tile counts with
 its 8192-key tile (:data:`SCATTER_TILE`; see the note in the CUDA
 source), refused above :data:`TABLE_CAP` entries.
 
+K2's one-sweep path also ranks a key stream on one digit, ``(key >>
+shift) & (n_bins - 1)``, taken in the kernel's registers:
+:func:`fractal_rank_digit` ranks a sort pass's digit so where
+:func:`ranks_key_stream` holds, and makes no digit stream.
+
 On a CPU tensor each wrapper computes the plain version
-(:func:`~repro_torch.kernels.ref.rank_ref`); on a CUDA tensor it launches
-its kernel or raises.
+(:func:`~repro_torch.kernels.ref.rank_ref`, after
+:func:`~repro_torch.kernels.ref.digit_ref` for a key stream); on a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import torch
 
 from repro_torch.core.fractal_tree import as_u32_bits, exclusive_cumsum
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.fractal_histogram import fractal_histogram
+from repro_torch.kernels.fractal_histogram import (fractal_histogram,
+                                                   fractal_histogram_digits)
 
 __all__ = [
     "DEFAULT_BLOCK",
@@ -48,6 +55,7 @@ __all__ = [
     "fractal_rank_digit",
     "lookback_status_bytes",
     "lookback_tiles",
+    "ranks_key_stream",
     "scatter_table_entries",
     "scatter_table_fits",
     "uses_lookback",
@@ -86,7 +94,7 @@ def _lib():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib = _build.library("fractal_rank", {
         "fs_rank_wide": [vp, ll, vp, vp, vp, i, vp, ll, vp],
-        "fs_rank_lookback": [vp, ll, vp, vp, i, vp, vp],
+        "fs_rank_lookback": [vp, ll, vp, vp, i, vp, i, ctypes.c_uint, vp],
         "fs_rank_lookback_tile": [],
         "fs_rank_scatter_tile": [],
         "fs_rank_scatter_lookback": [vp, ll, vp, vp, i, vp, vp],
@@ -165,6 +173,16 @@ def _check_table(tiles: int, n_bins: int) -> None:
             f"{TABLE_CAP} entries; use a narrower digit or the other engine")
 
 
+def _check_shift(n_bins: int, shift: int) -> None:
+    """K2 takes a key stream's ``shift`` only on its one-sweep path."""
+    if not uses_lookback(n_bins):
+        raise ValueError(
+            f"a shift takes K2's one-sweep path, up to {LOOKBACK_MAX_BINS} "
+            f"bins, not {n_bins}; extract the digit")
+    if not 0 <= shift <= 31:
+        raise ValueError(f"shift={shift} out of range (0..31)")
+
+
 def _check_args(keys: torch.Tensor, bin_start: torch.Tensor, n_bins: int):
     if not 1 <= n_bins <= _MAX_BINS:
         raise ValueError(f"n_bins={n_bins} out of range (1..{_MAX_BINS})")
@@ -194,15 +212,27 @@ def _scatter_tile_starts(keys: torch.Tensor, bin_start: torch.Tensor,
 
 def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
                         n_bins: int, block: int = DEFAULT_BLOCK,
-                        counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        counts: Optional[torch.Tensor] = None, *,
+                        shift: Optional[int] = None) -> torch.Tensor:
     """K2: stable output slot per key given exclusive bin starts.
     ``keys`` is int32 in ``[0, n_bins)``; ``bin_start`` is ``(n_bins,)``
     int32.  Keys outside the range get rank 0.  ``block`` is the
     reference's argument (checked, no tile here).  Above
     :data:`LOOKBACK_MAX_BINS` bins the two-level path takes ``counts``,
     the histogram of ``keys`` over ``[0, n_bins)``, or launches K1 for it;
-    up to that, ``counts`` is not read."""
+    up to that, ``counts`` is not read.
+
+    With a ``shift``, ``keys`` is a key stream (int32 storage of uint32
+    bits) and each key is ranked on its digit ``(key >> shift) & (n_bins -
+    1)`` (:func:`~repro_torch.kernels.ref.digit_ref`), which the kernel
+    takes in registers: no digit stream is made.  Only the one-sweep path
+    takes one (at most :data:`LOOKBACK_MAX_BINS` bins); elsewhere it
+    raises ValueError."""
+    if shift is not None:
+        _check_shift(n_bins, shift)
     if keys.device.type == "cpu":
+        if shift is not None:
+            keys = ref.digit_ref(keys, shift, n_bins - 1)
         return ref.rank_ref(keys, bin_start, n_bins)
     _check_args(keys, bin_start, n_bins)
     if block < 1:
@@ -216,8 +246,9 @@ def fractal_rank_kernel(keys: torch.Tensor, bin_start: torch.Tensor,
                              dtype=torch.int64, device=keys.device)
         _build.check(_lib().fs_rank_lookback(
             keys.data_ptr(), n, bin_start.data_ptr(), rank.data_ptr(),
-            n_bins, status.data_ptr(), _build.stream(keys.device)),
-            "fractal_rank_kernel")
+            n_bins, status.data_ptr(), shift or 0,
+            0xFFFFFFFF if shift is None else n_bins - 1,
+            _build.stream(keys.device)), "fractal_rank_kernel")
     else:
         if counts is None:
             counts = fractal_histogram(keys, n_bins)
@@ -308,15 +339,35 @@ def fractal_rank_counts(digit: torch.Tensor, n_bins: int,
     return rank, counts, counts
 
 
+def ranks_key_stream(digit_pass) -> bool:
+    """Whether :func:`fractal_rank_digit` hands K2 the key stream for this
+    pass (K2's one sweep, at most :data:`LOOKBACK_MAX_BINS` bins, and a
+    pass not on K3) rather than an extracted digit."""
+    return uses_lookback(digit_pass.n_bins) and digit_pass.engine != "scatter"
+
+
 def fractal_rank_digit(keys: torch.Tensor, digit_pass,
                        block: int = DEFAULT_BLOCK,
-                       bin_start: Optional[torch.Tensor] = None):
+                       bin_start: Optional[torch.Tensor] = None,
+                       counts: Optional[torch.Tensor] = None):
     """Stable ranks on one :class:`~repro_torch.core.sort_plan.DigitPass`
-    digit of the raw key stream, under the pass's engine hint.  Returns
+    digit of the raw key stream, under the pass's engine hint.  Where
+    :func:`ranks_key_stream` holds, K2 reads the key stream and takes the
+    digit itself (its counts ``counts``, or one K1 sweep of the key
+    stream); otherwise the digit is extracted and ranked.  Returns
     ``(rank, counts)``."""
     dp = digit_pass
-    digit = ((as_u32_bits(keys) >> dp.shift) & (dp.n_bins - 1)).contiguous()
-    rank, counts, _ = fractal_rank_counts(digit, dp.n_bins, block=block,
-                                          bin_start=bin_start,
-                                          engine=dp.engine)
+    u = as_u32_bits(keys).contiguous()
+    if not ranks_key_stream(dp):
+        digit = (u >> dp.shift) & (dp.n_bins - 1)
+        rank, counts, _ = fractal_rank_counts(digit, dp.n_bins, block=block,
+                                              bin_start=bin_start,
+                                              engine=dp.engine, counts=counts)
+        return rank, counts
+    if counts is None:
+        (counts,) = fractal_histogram_digits(u, (dp,))
+    if bin_start is None:
+        bin_start = exclusive_cumsum(counts)
+    rank = fractal_rank_kernel(u, bin_start, dp.n_bins, block=block,
+                               shift=dp.shift)
     return rank, counts

@@ -14,9 +14,9 @@ import torch
 
 from repro_torch.core.executor import _signed
 from repro_torch.core.fractal_tree import (as_u32_bits, exclusive_cumsum,
-                                           wrap_int32)
+                                           u32_to_int64, wrap_int32)
 
-__all__ = ["histogram_ref", "digit_histograms_ref", "rank_ref",
+__all__ = ["histogram_ref", "digit_histograms_ref", "digit_ref", "rank_ref",
            "reconstruct_ref", "scatter_ref", "moe_dispatch_ref",
            "moe_ranks_ref", "flash_attention_ref"]
 
@@ -44,6 +44,12 @@ def digit_histograms_ref(keys: torch.Tensor, passes, init=None) -> tuple:
     return tuple(histogram_ref((u >> dp.shift) & (dp.n_bins - 1), dp.n_bins,
                                init=carried)
                  for dp, carried in zip(passes, init))
+
+
+def digit_ref(keys: torch.Tensor, shift: int, mask: int) -> torch.Tensor:
+    """Each key's digit ``(key >> shift) & mask`` on its uint32 bits (a
+    logical shift), as int32 storage."""
+    return wrap_int32((u32_to_int64(keys) >> shift) & mask)
 
 
 def rank_ref(keys: torch.Tensor, bin_start: torch.Tensor,

@@ -34,6 +34,7 @@ from repro_torch.kernels.fractal_rank import (fractal_rank_kernel,
 from repro_torch.kernels.fractal_reconstruct import fractal_reconstruct
 from repro_torch.kernels.fractal_scatter import fractal_scatter
 from repro_torch.models import layers as L
+from repro_torch.obs import metrics as obs_metrics
 
 pytestmark = pytest.mark.cuda
 
@@ -114,6 +115,86 @@ def test_rank_lookback_unaligned_keys(rng, cuda_device):
     assert keys.data_ptr() % 16 != 0
     assert torch.equal(fractal_rank_kernel(keys, start, 16),
                        ref.rank_ref(keys, start, 16))
+
+
+def _key_stream(rng, n, dist):
+    """uint32 keys as int32 storage: uniform, Zipf(1.2), or one key."""
+    if dist == "uniform":
+        k = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    elif dist == "zipf":
+        k = np.minimum(rng.zipf(1.2, n), (1 << 32) - 1).astype(np.uint64)
+    else:
+        k = np.full(n, rng.integers(0, 1 << 32, dtype=np.uint64))
+    return k.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("shift", [0, 4, 13, 28])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_rank_key_stream_matches_digit_stream(rng, cuda_device, shift, bits):
+    """K2 on the key stream with the pass's shift equals K2 on the
+    extracted digit bit for bit: every width of its one sweep (both of its
+    in-tile paths), the uneven top digit of a p = 30 plan (2 bits at 28),
+    fields past bit 31 (a logical shift: zeros there), keys 0-3 elements
+    off a 16-byte boundary, ragged lengths across the 8192-key tiles,
+    uniform, Zipf and one-key streams."""
+    n_bins = 1 << bits
+    for dist in ("uniform", "zipf", "one_key"):
+        for off in range(4):
+            for n in (1, 8191, 8193, 3 * 8192 + 5, 100_003):
+                base = torch.from_numpy(_key_stream(rng, n + off, dist)).to(
+                    cuda_device)
+                u = base[off:]
+                assert (u.data_ptr() % 16 == 0) == (off == 0)
+                start = torch.from_numpy(rng.integers(
+                    0, 1 << 20, n_bins).astype(np.int32)).to(cuda_device)
+                digit = ref.digit_ref(u, shift, n_bins - 1)
+                want = fractal_rank_kernel(digit, start, n_bins)
+                got = fractal_rank_kernel(u, start, n_bins, shift=shift)
+                assert torch.equal(got, want), (dist, off, n)
+                assert torch.equal(got, ref.rank_ref(digit, start, n_bins))
+
+
+@pytest.mark.parametrize("n_bins", [16, 256])
+def test_rank_out_of_range_digits_rank_zero(rng, cuda_device, n_bins):
+    """A digit stream's -1 and n_bins pads rank 0 and take no slot."""
+    d = torch.from_numpy(_digits(rng, 50_001, n_bins, "uniform")).to(
+        cuda_device)
+    start = torch.from_numpy(rng.integers(0, 1 << 20, n_bins).astype(
+        np.int32)).to(cuda_device)
+    got = fractal_rank_kernel(d, start, n_bins)
+    assert torch.equal(got, ref.rank_ref(d, start, n_bins))
+    bad = (d < 0) | (d >= n_bins)
+    assert bool(bad.any()) and not bool(got[bad].any())
+
+
+@pytest.mark.parametrize("p", [32, 30, 16])
+@pytest.mark.parametrize("max_bins_log2", [4, 8, 16])
+def test_sorts_on_key_stream_rank_match_torch_sort(rng, cuda_device, p,
+                                                  max_bins_log2):
+    """fractal_sort, fractal_argsort and fractal_sort_pairs on the card
+    against torch.sort(stable=True): K2 takes every pass's digit from the
+    key stream on the 4- and 8-bit plans (counted once a pass), the 16-bit
+    plans extract theirs."""
+    n = 300_001
+    keys = np.minimum(rng.zipf(1.2, n), (1 << p) - 1).astype(np.uint32)
+    keys[::2] = rng.integers(0, 1 << p, (n + 1) // 2, dtype=np.uint64)
+    t = torch.from_numpy(keys).to(cuda_device)
+    want = torch.sort(torch.from_numpy(keys.astype(np.int64)).to(cuda_device),
+                      stable=True)
+    plan = make_sort_plan(n, p, max_bins_log2=max_bins_log2)
+    key_stream_passes = sum(map(rank_mod.ranks_key_stream, plan.passes))
+    before = obs_metrics.counter("executor.rank.digit_in_kernel").value
+    out = fractal_sort(t, p, max_bins_log2=max_bins_log2)
+    assert torch.equal(out.cpu().to(torch.int64), want.values.cpu())
+    perm = fractal_argsort(t, p, max_bins_log2=max_bins_log2)
+    assert torch.equal(perm.long(), want.indices)
+    sk, sv = fractal_sort_pairs(
+        t, torch.arange(n, dtype=torch.int32, device=cuda_device), p,
+        max_bins_log2=max_bins_log2)
+    assert torch.equal(sk.cpu().to(torch.int64), want.values.cpu())
+    assert torch.equal(sv.long(), want.indices)
+    got = obs_metrics.counter("executor.rank.digit_in_kernel").value - before
+    assert got == 3 * key_stream_passes, (plan, got)
 
 
 @pytest.mark.parametrize("n_bins,table", [(16, False), (256, False),

@@ -118,7 +118,9 @@ def test_each_sort_leaves_the_tree_of_its_passes(rng, which):
     for i, ps in enumerate(passes):
         names = [s["name"] for s in _children(tr, ps)]
         msd = i == len(passes) - 1 and reconstructs
-        want = (["executor.digit", "executor.rank", "executor.scatter"]
+        # every 4-bit pass fits K2's one sweep: K2 takes the digit from
+        # the key stream, and no pass extracts one
+        want = (["executor.rank", "executor.scatter"]
                 + (["executor.reconstruct"] if msd else []))
         assert names == want, (i, names)
         for child in _children(tr, ps):
@@ -133,6 +135,10 @@ def test_each_sort_leaves_the_tree_of_its_passes(rng, which):
         got = after[key]["count"] - before.get(key, {}).get("count", 0)
         assert got == len(tr.find(name)), name
         assert f"span.{name}.device_s" not in after
+    # one count a pass whose digit K2 took
+    assert (after["executor.rank.digit_in_kernel"]
+            - before.get("executor.rank.digit_in_kernel", 0)
+            == plan.num_passes)
 
 
 def test_every_entry_opens_one_call_span(rng):

@@ -122,7 +122,8 @@ def test_cuda_backend_run_modes_match_reference(rng, p):
 
 
 class _Spy(CudaBackend):
-    """CudaBackend recording the hook's calls and the counts rank gets."""
+    """CudaBackend recording the hook's calls and the counts each pass's
+    rank gets (K2 on the key stream, or the extracted digit's rank)."""
 
     def __init__(self):
         super().__init__()
@@ -134,9 +135,9 @@ class _Spy(CudaBackend):
         self.hook.append(out)
         return out
 
-    def rank(self, digit, n_bins, **kw):
-        self.rank_counts.append(kw.get("counts"))
-        return super().rank(digit, n_bins, **kw)
+    def rank_pass(self, u, dp, counts=None):
+        self.rank_counts.append(counts)
+        return super().rank_pass(u, dp, counts)
 
 
 @pytest.mark.parametrize("mode", ["run", "run_pairs", "run_argsort"])
